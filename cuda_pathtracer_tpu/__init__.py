@@ -1,22 +1,20 @@
-"""cuda_pathtracer_tpu — a TPU-native path-tracing framework with the
+"""cuda_pathtracer_tpu — a wavefront path-tracing framework in JAX with the
 capabilities of HugoPeters1024/cuda_pathtracer. See README.md and PARITY.md.
 """
 import os
 
 
 def _default_compilation_cache():
-    """Remote TPU compiles take minutes; persist them across processes unless
-    the user configured a cache themselves."""
+    """Persist compiled programs across processes. JAX reads
+    JAX_COMPILATION_CACHE_DIR itself when it is set; otherwise the cache is
+    one fixed directory in the checkout (git ignores it)."""
     if os.environ.get('JAX_COMPILATION_CACHE_DIR'):
         return
-    try:
-        import jax
-        if not jax.config.jax_compilation_cache_dir:
-            jax.config.update('jax_compilation_cache_dir',
-                              os.environ.get('JAX_CACHE_DIR', '/tmp/jaxcache'))
-            jax.config.update('jax_persistent_cache_min_compile_time_secs', 1.0)
-    except Exception:  # pragma: no cover - jax config may be frozen
-        pass
+    import jax
+    if not jax.config.jax_compilation_cache_dir:
+        jax.config.update('jax_compilation_cache_dir', os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            '.jax_cache'))
 
 
 _default_compilation_cache()

@@ -29,7 +29,7 @@ import numpy as np
 def build_argparser():
     p = argparse.ArgumentParser(
         prog='cuda_pathtracer_tpu',
-        description='TPU-native wavefront path tracer '
+        description='wavefront path tracer in JAX '
                     '(capabilities of HugoPeters1024/cuda_pathtracer)')
     p.add_argument('-s', '--scene', default='outside',
                    help='built-in scene name or path to a .chai script '
@@ -69,7 +69,7 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    asset_dirs = args.asset_dir + ['.', '/root/reference']
+    asset_dirs = args.asset_dir + ['.']
 
     from .scene.builder import get_scene
     from .scene import state as state_mod

@@ -6,9 +6,9 @@ leaf cutoff count<=4 or degenerate centroid extent, child boxes assigned from
 the scanned bins (not recomputed), children adjacent in memory, and a final
 triangle permutation so leaf ranges are contiguous.
 
-This module is the pure-numpy fallback; `native.py` exposes a C++
-implementation of the identical algorithm behind the same signature and is
-preferred automatically when its shared object is available.
+This module is the pure-numpy reference; `native.py` exposes a C++
+implementation of the identical algorithm behind the same signature, and
+`build_bvh` uses it for every build.
 """
 from __future__ import annotations
 
@@ -64,7 +64,8 @@ def build_bvh_numpy(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> BVHNodes:
         """Fallback when SAH bails with count > BVH_LEAF_SIZE: median split so
         leaves NEVER exceed BVH_LEAF_SIZE (the traversal kernels test exactly
         that many triangles per leaf; the reference instead loops a dynamic
-        range, src/kernels.h:224-241 — a static bound is the TPU contract)."""
+        range, src/kernels.h:224-241 — the XLA leaf test is fixed-width and
+        the GPU kernel packs the count into 3 bits)."""
         nonlocal node_count
         order = np.argsort(centroids[ids][:, axis], kind='stable')
         indices[start:start + count] = ids[order]
@@ -160,7 +161,8 @@ def build_bvh_numpy(v0: np.ndarray, v1: np.ndarray, v2: np.ndarray) -> BVHNodes:
 
 
 def build_bvh(v0, v1, v2) -> BVHNodes:
-    """Build a BVH, preferring the native C++ builder when available.
+    """Build a BVH with the native C++ builder (raises when it cannot be
+    built or loaded).
 
     CPT_SBVH=1 opts into the spatial-split quality build (native only —
     `perm` then holds >= T refs with duplicates; scene.py stores the
@@ -168,13 +170,11 @@ def build_bvh(v0, v1, v2) -> BVHNodes:
     tunes the overlap gate (default 1e-5 of root area)."""
     import os
     from . import native
-    if native.available():
-        if os.environ.get('CPT_SBVH', '0') == '1':
-            alpha = float(os.environ.get('CPT_SBVH_ALPHA', '1e-5'))
-            dup = float(os.environ.get('CPT_SBVH_DUP', '1.4'))
-            nodes = native.build_bvh_sbvh_native(v0, v1, v2, alpha=alpha,
-                                                 dup_factor=dup)
-            if nodes is not None:
-                return nodes
-        return native.build_bvh_native(v0, v1, v2)
-    return build_bvh_numpy(v0, v1, v2)
+    if os.environ.get('CPT_SBVH', '0') == '1':
+        alpha = float(os.environ.get('CPT_SBVH_ALPHA', '1e-5'))
+        dup = float(os.environ.get('CPT_SBVH_DUP', '1.4'))
+        nodes = native.build_bvh_sbvh_native(v0, v1, v2, alpha=alpha,
+                                             dup_factor=dup)
+        if nodes is not None:
+            return nodes
+    return native.build_bvh_native(v0, v1, v2)

@@ -1,18 +1,19 @@
-"""Flatten a binary BVH into a threaded (stackless) layout for TPU traversal.
+"""Flatten a binary BVH into a threaded (DFS pre-order) layout.
 
-TPU-first redesign of the traversal data structure: instead of the reference's
-per-ray short stack (src/kernels.h:202-275), nodes are stored in DFS pre-order
-with a precomputed *miss link*. Traversal is then a single uniform loop
+Nodes are stored in DFS pre-order with a precomputed *miss link*, so the XLA
+reference traversal (ops/traverse.py) is a single uniform loop
 
     node = (inner and box-hit) ? node + 1 : miss[node]
 
-with no stack and no data-dependent memory footprint — exactly the shape a
-vmapped `lax.while_loop` wants: one gather + elementwise ops per step across
-the whole wavefront. A sentinel miss link of -1 terminates.
-
-The price is a fixed left-first ordering chosen at build time instead of the
-reference's per-ray ordered descent; the slab test's t-early-out (boxtest,
+with no stack and no data-dependent memory footprint — the shape a vectorized
+`lax.while_loop` wants: one gather + elementwise ops per step across the
+whole wavefront. A sentinel miss link of -1 terminates. That loop's order is
+fixed left-first; the slab test's t-early-out (boxtest,
 src/kernels.h:194-200) still prunes by the current best hit.
+
+The same layout serves the GPU kernel's per-ray near-first walk with a short
+stack (ops/traverse_cuda.py, the reference's src/kernels.h:202-275): an inner
+node n has its left child at n + 1 and its right child at miss[n + 1].
 """
 from __future__ import annotations
 
@@ -65,3 +66,17 @@ def thread_bvh(nodes: BVHNodes) -> ThreadedBVH:
         miss=miss,
         leaf_start=nodes.leaf_start[order],
         leaf_count=nodes.leaf_count[order])
+
+
+def inner_ancestors(miss: np.ndarray, leaf_count: np.ndarray) -> int:
+    """Most inner ancestors of any node in a threaded DFS layout: the stack
+    a per-ray near-first walk needs (ops/traverse_cuda.py). An inner node j
+    is an ancestor of every node in (j, end_j), end_j = miss[j] (or N)."""
+    n = len(miss)
+    if n == 0:
+        return 0
+    inner = np.nonzero(leaf_count == 0)[0]
+    end = np.where(miss[inner] < 0, n, miss[inner])
+    delta = (np.bincount(inner + 1, minlength=n + 1)
+             - np.bincount(end, minlength=n + 1))
+    return int(np.cumsum(delta[:n]).max())

@@ -2,31 +2,30 @@
 
 The reference refreshes only instance matrices and the tiny top-level BVH per
 invalidation (src/pathtracer.h:245-246, src/scene.h:400); bottom BVHs and
-triangles never leave the device. This module is the TPU equivalent: the
+triangles never leave the device. This module is the equivalent here: the
 spliced world tables are built ONCE in model space (identity transforms) as
-templates resident in HBM, and every invalidation runs one jitted refit —
+templates resident in device memory, and every invalidation runs one jitted
+refit —
 pure einsum/elementwise work over the tables — instead of re-baking every
 world triangle in numpy and re-uploading tens of MB.
 
 What moves per invalidation: the instance transforms (I x 12 floats) and the
-handful of host-rebuilt TOP rows (instance-pairing region). Everything else
-is compute on data already in HBM.
+world box. Everything else is compute on data already on the device.
 
-Splice topology (refs, gids, leaf counts, thread links) is FROZEN at template
-build; animation changes geometry only. Top-level boxes are recomputed from
-the transformed instance root boxes host-side (they are 1-2 rows) exactly
-like the reference's per-frame BuildTopLevelBVH.
+Splice topology (node links, gids, leaf counts) is FROZEN at template build;
+animation changes geometry only.
 """
 from __future__ import annotations
 
-from functools import partial
 from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .wide import ARITY, LEAF_MAX
+# f32 products in full f32: a box refitted in TF32 may not enclose its
+# triangles, and traversal would then miss hits
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 # 8 box corners as min/max selectors
 _CORNERS = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1],
@@ -34,18 +33,8 @@ _CORNERS = np.array([[0, 0, 0], [1, 0, 0], [0, 1, 0], [0, 0, 1],
 
 
 class RefitTemplates(NamedTuple):
-    """Model-space spliced tables + per-row owners (built once per scene
-    topology)."""
-    # packet tables (ops/traverse_packet.py layout), model space
-    inner: jnp.ndarray        # f32[Ni, 128]
-    leaf: jnp.ndarray         # f32[Nl, 128]
-    inner_inst: jnp.ndarray   # i32[Ni] owning instance; -1 = top row
-    leaf_inst: jnp.ndarray    # i32[Nl]
-    n_top: int                # leading inner rows rebuilt on host
-    # unified wide table (XLA fallback path), model space
-    wide: jnp.ndarray         # f32[NW, 128]
-    wide_inst: jnp.ndarray    # i32[NW]
-    # narrow threaded world BVH geometry, model space
+    """Model-space threaded world BVH geometry + per-row owners (built once
+    per scene topology)."""
     node_box: jnp.ndarray     # f32[N, 6]
     node_inst: jnp.ndarray    # i32[N]
     tris: jnp.ndarray         # f32[WT, 9]
@@ -59,209 +48,38 @@ def _gather_tf(transforms, inst):
 
 
 @jax.jit
-def _refit_packet_inner(inner, inner_inst, transforms, top_rows):
-    tf = _gather_tf(transforms, inner_inst)
-    rot, trn = tf[:, :, :3], tf[:, :, 3]
-    box = inner[:, :96].reshape(-1, 6, ARITY)
-    vmin = box[:, 0:3].transpose(0, 2, 1)       # [R, 16, 3]
-    vmax = box[:, 3:6].transpose(0, 2, 1)
-    corners = (vmin[:, :, None, :] * (1 - _CORNERS)
-               + vmax[:, :, None, :] * _CORNERS)        # [R, 16, 8, 3]
-    wc = jnp.einsum('rij,rcgj->rcgi', rot, corners) + trn[:, None, None, :]
-    nmin = jnp.min(wc, axis=2)
-    nmax = jnp.max(wc, axis=2)
-    # NaN slots propagate through min/max -> stay NaN (empty-slot sentinel)
-    nb = jnp.concatenate([nmin.transpose(0, 2, 1),
-                          nmax.transpose(0, 2, 1)], axis=1).reshape(-1, 96)
-    out = jnp.concatenate([nb, inner[:, 96:]], axis=1)
-    if top_rows.shape[0]:
-        out = out.at[:top_rows.shape[0]].set(top_rows)
-    return out
-
-
-@jax.jit
-def _refit_packet_leaf(leaf, leaf_inst, transforms):
-    tf = _gather_tf(transforms, leaf_inst)
-    rot, trn = tf[:, :, :3], tf[:, :, 3]
-    tr = leaf[:, :9 * LEAF_MAX].reshape(-1, 3, 3, LEAF_MAX)   # [R,(v0,e1,e2),xyz,12]
-    w = jnp.einsum('rij,rvjt->rvit', rot, tr)
-    # v0 gets the translation; e1/e2 are direction-like
-    w = w.at[:, 0].add(trn[:, :, None])
-    return jnp.concatenate([w.reshape(-1, 9 * LEAF_MAX),
-                            leaf[:, 9 * LEAF_MAX:]], axis=1)
-
-
-@jax.jit
-def _refit_wide(wide, wide_inst, transforms, top_rows, n_top: int = 0):
-    """Unified wide table: leaf rows (tag<0) transform tris exactly, inner
-    rows (tag>0) conservatively; top rows overwritten from host."""
-    tf = _gather_tf(transforms, wide_inst)
-    rot, trn = tf[:, :, :3], tf[:, :, 3]
-    tag = wide[:, 0:1]
-
-    # inner interpretation (sentinel 3e38 boxes round-trip: min/max of
-    # transformed +-BIG corners keeps them inside-out only if untouched, so
-    # select by emptiness explicitly like the host path)
-    box = wide[:, 1:97].reshape(-1, 6, ARITY)
-    vmin = box[:, 0:3].transpose(0, 2, 1)
-    vmax = box[:, 3:6].transpose(0, 2, 1)
-    corners = (vmin[:, :, None, :] * (1 - _CORNERS)
-               + vmax[:, :, None, :] * _CORNERS)
-    wc = jnp.einsum('rij,rcgj->rcgi', rot, corners) + trn[:, None, None, :]
-    nmin = jnp.min(wc, axis=2)
-    nmax = jnp.max(wc, axis=2)
-    empty = vmin[..., 0] > 1e38
-    nmin = jnp.where(empty[..., None], vmin, nmin)
-    nmax = jnp.where(empty[..., None], vmax, nmax)
-    inner_payload = jnp.concatenate([nmin.transpose(0, 2, 1),
-                                     nmax.transpose(0, 2, 1)],
-                                    axis=1).reshape(-1, 96)
-
-    # leaf interpretation (field-major v0x..v2z, accel/wide.py)
-    tr = wide[:, 1:1 + 9 * LEAF_MAX].reshape(-1, 3, 3, LEAF_MAX)
-    w = jnp.einsum('rij,rvjt->rvit', rot, tr) + trn[:, None, :, None]
-    leaf_payload = w.reshape(-1, 9 * LEAF_MAX)
-
-    is_leaf = tag[:, 0:1] < 0
-    payload = jnp.where(is_leaf, leaf_payload[:, :96], inner_payload)
-    tail = jnp.where(is_leaf, leaf_payload[:, 96:108],
-                     wide[:, 97:109])
-    out = jnp.concatenate([tag, payload, tail, wide[:, 109:]], axis=1)
-    if top_rows.shape[0]:
-        out = out.at[:top_rows.shape[0]].set(top_rows)
-    return out
-
-
-@jax.jit
-def _refit_narrow(node_box, node_inst, tris, tri_inst, transforms, world_box):
-    """Narrow threaded world BVH geometry refit. The handful of top pairing
-    nodes (node_inst == -1) get the whole world box — conservative and
-    correct (they are always entered), trading a few extra node visits on
-    the CPU fallback path for a frozen topology."""
+def _refit_world(node_box, node_inst, tris, tri_inst, transforms, world_box):
+    """Threaded world BVH geometry refit. The handful of top pairing nodes
+    (node_inst == -1) get the whole world box — conservative and correct
+    (they are always entered), trading a few extra node visits for a frozen
+    topology."""
     tf = _gather_tf(transforms, node_inst)
     rot, trn = tf[:, :, :3], tf[:, :, 3]
     vmin, vmax = node_box[:, 0:3], node_box[:, 3:6]
     corners = (vmin[:, None, :] * (1 - _CORNERS)
                + vmax[:, None, :] * _CORNERS)            # [N, 8, 3]
-    wc = jnp.einsum('rij,rgj->rgi', rot, corners) + trn[:, None, :]
+    wc = jnp.einsum('rij,rgj->rgi', rot, corners,
+                    precision=_HIGHEST) + trn[:, None, :]
     nb = jnp.concatenate([jnp.min(wc, axis=1), jnp.max(wc, axis=1)], axis=1)
     nb = jnp.where((node_inst < 0)[:, None], world_box[None, :], nb)
 
     tft = _gather_tf(transforms, tri_inst)
     rott, trnt = tft[:, :, :3], tft[:, :, 3]
     tv = tris.reshape(-1, 3, 3)
-    wt = jnp.einsum('rij,rvj->rvi', rott, tv) + trnt[:, None, :]
+    wt = jnp.einsum('rij,rvj->rvi', rott, tv,
+                    precision=_HIGHEST) + trnt[:, None, :]
     return nb, wt.reshape(-1, 9)
 
 
-def top_row_boxes(inst_boxes: np.ndarray):
-    """Host-side per-invalidation rebuild of the wide/packet TOP rows' child
-    boxes — the exact grouping loop of accel/wide.build_world_wide (chunks of
-    ARITY in instance order, parents placed from the back of the reserved
-    region). inst_boxes: f32[I, 6] world boxes of the instance roots.
-
-    Returns (boxes f32[n_top, 6, ARITY] with +-inf sentinels in empty slots,
-    valid bool[n_top, ARITY]) in top-row order; n_top == 0 for one instance.
-    """
-    n_inst = len(inst_boxes)
-    n_top = 0
-    cnt = n_inst
-    while cnt > 1:
-        n_top += (cnt + ARITY - 1) // ARITY
-        cnt = (cnt + ARITY - 1) // ARITY
-    if n_top == 0:
-        return (np.zeros((0, 6, ARITY), np.float32),
-                np.zeros((0, ARITY), bool))
-
-    boxes = np.zeros((n_top, 6, ARITY), np.float32)
-    boxes[:, 0:3] = 3.0e38
-    boxes[:, 3:6] = -3.0e38
-    valid = np.zeros((n_top, ARITY), bool)
-    level = [inst_boxes[i] for i in range(n_inst)]
-    next_free = n_top
-    while len(level) > 1:
-        nxt = []
-        for g in range(0, len(level), ARITY):
-            chunk = level[g:g + ARITY]
-            next_free -= 1
-            for k, b in enumerate(chunk):
-                boxes[next_free, 0:3, k] = b[0:3]
-                boxes[next_free, 3:6, k] = b[3:6]
-                valid[next_free, k] = True
-            gmin = np.min([b[0:3] for b in chunk], axis=0)
-            gmax = np.max([b[3:6] for b in chunk], axis=0)
-            nxt.append(np.concatenate([gmin, gmax]))
-        level = nxt
-    assert next_free == 0
-    return boxes, valid
-
-
-def patch_top_rows(template_rows: np.ndarray, boxes: np.ndarray,
-                   valid: np.ndarray, box_offset: int,
-                   empty_min: float, empty_max: float):
-    """New top rows = template rows (static refs) with fresh child boxes.
-    Empty slots get (empty_min, empty_max) sentinels: NaN/NaN for the packet
-    layout, +BIG/-BIG inside-out for the unified wide layout."""
-    n_top = len(boxes)
-    rows = np.array(template_rows[:n_top], copy=True)
-    fill = np.array([empty_min] * 3 + [empty_max] * 3,
-                    np.float32)[None, :, None]
-    b = np.where(valid[:, None, :], boxes, fill)
-    rows[:, box_offset:box_offset + 6 * ARITY] = b.reshape(n_top, -1)
-    return rows
-
-
-def build_templates(model_wides, inst_model, wtri_bases, wb,
-                    tri_v0, tri_v1, tri_v2, depth: int) -> 'RefitTemplates':
-    """Capture the model-space spliced tables once per scene topology.
-
-    The wide/packet splice order is transform-independent (instances in
-    order, ARITY-chunked top grouping), so building with identity transforms
-    yields the live tables' exact refs/gids with model-space geometry."""
-    from .wide import build_world_wide
-    from ..ops.traverse_packet import split_packet_tables
-    n_inst = len(inst_model)
-    ident = np.tile(np.hstack([np.eye(3, dtype=np.float32),
-                               np.zeros((3, 1), np.float32)]),
-                    (n_inst, 1, 1))
-    ww = build_world_wide(model_wides, inst_model, ident, wtri_bases)
-
-    # per-row owner: n_top leading rows are -1, then one segment per instance
-    n_top = 0
-    cnt = n_inst
-    while cnt > 1:
-        n_top += (cnt + ARITY - 1) // ARITY
-        cnt = (cnt + ARITY - 1) // ARITY
-    wide_inst = np.full(len(ww.rows), -1, np.int32)
-    pos = n_top
-    for i in range(n_inst):
-        n = len(model_wides[inst_model[i]].rows)
-        wide_inst[pos:pos + n] = i
-        pos += n
-    assert pos == len(ww.rows)
-
-    ptab = split_packet_tables(ww.rows, depth)
-    tag = ww.rows[:, 0]
-    inner_inst = wide_inst[tag > 0]
-    leaf_inst = wide_inst[tag < 0]
-    # split_packet_tables synthesizes an always-hit root (or an empty leaf
-    # table) when a side is missing — keep the inst maps aligned; the
-    # synthesized rows are transform-invariant (+-BIG box / degenerate tris)
-    if len(inner_inst) != int(ptab.inner.shape[0]):
-        inner_inst = np.full(int(ptab.inner.shape[0]), -1, np.int32)
-    if len(leaf_inst) != int(ptab.leaf.shape[0]):
-        leaf_inst = np.full(int(ptab.leaf.shape[0]), -1, np.int32)
-
+def build_templates(wb, tri_v0, tri_v1, tri_v2) -> 'RefitTemplates':
+    """Capture the model-space world tables once per scene topology: node
+    boxes from the world build's model-space boxes, triangles from the
+    model-space vertices of their source triangles."""
     tris_model = np.concatenate(
         [tri_v0[wb.tri_gid], tri_v1[wb.tri_gid], tri_v2[wb.tri_gid]],
         axis=1).astype(np.float32)
     node_box = np.concatenate([wb.mvmin, wb.mvmax], axis=1).astype(np.float32)
-
     return RefitTemplates(
-        inner=ptab.inner, leaf=ptab.leaf,
-        inner_inst=jnp.asarray(inner_inst), leaf_inst=jnp.asarray(leaf_inst),
-        n_top=n_top,
-        wide=jnp.asarray(ww.rows), wide_inst=jnp.asarray(wide_inst),
         node_box=jnp.asarray(node_box),
         node_inst=jnp.asarray(wb.node_inst),
         tris=jnp.asarray(tris_model),
@@ -270,36 +88,15 @@ def build_templates(model_wides, inst_model, wtri_bases, wb,
 
 def refit_all(templates: RefitTemplates, transforms: np.ndarray,
               inst_root_boxes: np.ndarray):
-    """One invalidation: host rebuilds only the top rows; the device
-    transforms everything else in place. Returns
-    (packet_inner, packet_leaf, wide_rows, node_box, world_tris, bounds)."""
-    n_inst = len(transforms)
+    """One invalidation on the device. inst_root_boxes: f32[I, 6] world boxes
+    of the instance roots (their union boxes the top pairing nodes). Returns
+    (node_box, world_tris)."""
     ident = np.hstack([np.eye(3, dtype=np.float32),
                        np.zeros((3, 1), np.float32)])
     t34 = jnp.asarray(np.concatenate(
         [transforms.astype(np.float32), ident[None]], axis=0))
-
-    boxes, valid = top_row_boxes(inst_root_boxes)
-    n_top = templates.n_top
-    if n_top:
-        top_packet = patch_top_rows(np.asarray(templates.inner[:n_top]),
-                                    boxes, valid, 0, np.nan, np.nan)
-        top_wide = patch_top_rows(np.asarray(templates.wide[:n_top]),
-                                  boxes, valid, 1, 3.0e38, -3.0e38)
-    else:
-        top_packet = np.zeros((0, 128), np.float32)
-        top_wide = np.zeros((0, 128), np.float32)
-
-    inner = _refit_packet_inner(templates.inner, templates.inner_inst, t34,
-                                jnp.asarray(top_packet))
-    leaf = _refit_packet_leaf(templates.leaf, templates.leaf_inst, t34)
-    wide = _refit_wide(templates.wide, templates.wide_inst, t34,
-                       jnp.asarray(top_wide))
     wmin = inst_root_boxes[:, 0:3].min(axis=0)
     wmax = inst_root_boxes[:, 3:6].max(axis=0)
     world_box = jnp.asarray(np.concatenate([wmin, wmax]).astype(np.float32))
-    node_box, wtris = _refit_narrow(templates.node_box, templates.node_inst,
-                                    templates.tris, templates.tri_inst, t34,
-                                    world_box)
-    bounds = np.stack([wmin, np.maximum(wmax - wmin, 1e-6)]).astype(np.float32)
-    return inner, leaf, wide, node_box, wtris, bounds
+    return _refit_world(templates.node_box, templates.node_inst,
+                         templates.tris, templates.tri_inst, t34, world_box)

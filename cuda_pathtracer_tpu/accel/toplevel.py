@@ -5,13 +5,12 @@ the agglomeratively-built top-level BVH (src/scene.h:55-118, rebuilt every
 frame at src/scene.h:400) whose leaves transform the ray into model space and
 run the bottom-level traversal (src/kernels.h:277-387).
 
-On TPU a per-ray two-level walk with ray re-transformation is hostile to
-vectorization, so we *splice*: the tiny top-level tree and every instance's
-threaded model BVH are merged into ONE threaded node array in world space.
-Instance transforms are applied to node boxes conservatively (8-corner
-transform, the reference's own transformBox, src/scene.h:27-47) and to
-triangles exactly. Traversal then needs no stack, no transform, no special
-cases — a single uniform loop over one node array.
+Here the tiny top-level tree and every instance's threaded model BVH are
+*spliced* into ONE threaded node array in world space. Instance transforms
+are applied to node boxes conservatively (8-corner transform, the
+reference's own transformBox, src/scene.h:27-47) and to triangles exactly.
+Traversal then needs no ray transform and no special cases — the vectorized
+XLA walks loop over one node array, and the GPU kernel walks one binary tree.
 
 Rebuilding after an animation step is pure array arithmetic over precomputed
 per-model flats (no SAH re-run), mirroring the reference's cheap per-frame

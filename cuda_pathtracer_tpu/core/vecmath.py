@@ -7,7 +7,11 @@ whole wavefront of rays is one VPU-shaped array op.
 """
 from __future__ import annotations
 
+import jax
 import jax.numpy as jnp
+
+# f32 products in full f32: a GPU may otherwise run them in TF32
+_HIGHEST = jax.lax.Precision.HIGHEST
 
 
 def dot(a, b):
@@ -65,7 +69,8 @@ def transform_point(m, p):
 
     Equivalent of the reference mat4x3::mul(target, 1.0f) (src/types.h:401-406).
     """
-    return jnp.einsum('...ij,...j->...i', m[..., :, :3], p) + m[..., :, 3]
+    return jnp.einsum('...ij,...j->...i', m[..., :, :3], p,
+                      precision=_HIGHEST) + m[..., :, 3]
 
 
 def transform_dir(m, d):
@@ -73,7 +78,8 @@ def transform_dir(m, d):
 
     Equivalent of mat4x3::mul(target, 0.0f) (src/types.h:401-406).
     """
-    return jnp.einsum('...ij,...j->...i', m[..., :, :3], d)
+    return jnp.einsum('...ij,...j->...i', m[..., :, :3], d,
+                      precision=_HIGHEST)
 
 
 def orthonormal_basis(w):

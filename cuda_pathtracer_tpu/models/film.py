@@ -63,21 +63,7 @@ def blur_luminance(lum, alb, n_samples, width: int, height: int):
     src/main.cpp:111-171): horizontal over luminance/albedo * nrSamples with
     taps i=-3..3, vertical over the result with taps i=-4..3, spread
     max(0.7, n/200). Returns the blurred luminance [H*W, 3] whose implicit
-    w is n_samples.
-
-    On TPU, frames that fit VMEM run as one fused Pallas stencil kernel
-    (ops/blur_pallas.py); this XLA version is the semantics reference and
-    the fallback."""
-    import jax
-    from ..ops import blur_pallas
-    if (blur_pallas.fits_vmem(width, height)
-            and jax.devices()[0].platform == 'tpu'):
-        return blur_pallas.blur_luminance_pallas(lum, alb, n_samples,
-                                                 width=width, height=height)
-    return _blur_xla(lum, alb, n_samples, width, height)
-
-
-def _blur_xla(lum, alb, n_samples, width: int, height: int):
+    w is n_samples. XLA fuses the shifted adds into one pass."""
     spread = jnp.maximum(0.7, n_samples / 200.0)
     lum_img = lum[:, :3].reshape(height, width, 3)
     alb_img = alb[:, :3].reshape(height, width, 3)

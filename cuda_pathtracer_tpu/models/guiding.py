@@ -1,11 +1,10 @@
 """Path guiding: the 8-bucket per-triangle radiance cache.
 
-TPU-native replacement for the atomicAdd update/propagate kernels
-(kernel_update_buckets / kernel_propagate_buckets, src/kernels.h:848-905):
-the per-(triangle, bucket) scatter-add becomes one `segment_sum` keyed by
-triangle_id * 8 + bucket, and the EMA propagate is a pure elementwise op —
-no concurrency control needed at all (the reference needed a dedicated
-per-triangle kernel to avoid it, README.md:91-92).
+The atomicAdd update/propagate kernels (kernel_update_buckets /
+kernel_propagate_buckets, src/kernels.h:848-905) become one `segment_sum`
+keyed by triangle_id * 8 + bucket and a pure elementwise EMA propagate — no
+concurrency control in user code (the reference needed a dedicated
+per-triangle kernel for that, README.md:91-92).
 
 Semantics preserved: energy = min(100, luminance(totalEnergy / cum_mask)),
 EMA alpha = 0.95, clamp to [0.1, 2.0], radianceTotal tracks the bucket sum,
@@ -15,7 +14,6 @@ A TERMINATE entry stops a pixel's chain; IGNORE skips a bounce but continues
 """
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import jax
@@ -33,22 +31,6 @@ ALPHA = 0.95
 ENERGY_CLAMP = 100.0
 VALUE_MIN = 0.1
 VALUE_MAX = 2.0
-
-
-def _use_scatter_kernel() -> bool:
-    """Host-static choice of the bucket-sum implementation: the Pallas
-    dense-window kernel on real devices, XLA segment_sum on CPU (where the
-    Mosaic kernel would run in slow interpret mode and CPU goldens expect
-    XLA's bit-exact serial accumulation). CPT_GUIDE_KERNEL=1/0 overrides."""
-    v = os.environ.get('CPT_GUIDE_KERNEL', 'auto')
-    if v in ('0', 'off'):
-        return False
-    if v in ('1', 'on'):
-        return True
-    try:
-        return jax.default_backend() != 'cpu'
-    except Exception:
-        return False
 
 
 class RadianceState(NamedTuple):
@@ -105,23 +87,8 @@ def accumulate_buckets(state_tris: int, cache: SampleCache,
     seg = (cache.tri * GUIDE_BUCKETS + cache.bucket).reshape(-1)
     seg = jnp.where(valid.reshape(-1), seg, n_tris * GUIDE_BUCKETS)
     num_segments = n_tris * GUIDE_BUCKETS + 1
-    # the dense table must stay VMEM-resident: (ceil(S/128)+16) rows x 256
-    # cols x 4 B; past ~2.5M triangles (2mtris-class scenes) fall back to
-    # XLA's scatter rather than blow the kernel's VMEM budget
-    table_mb = (num_segments // 128 + 17) * 256 * 4 / 2**20
-    if _use_scatter_kernel() and table_mb <= 72.0:
-        # Pallas sort + dense-window accumulation (ops/guiding_scatter.py):
-        # ~4x faster than XLA's per-update scatter at the 1.24M-update
-        # band-sample shape; matches segment_sum to f32 tolerance (the
-        # addition order differs)
-        from ..ops.guiding_scatter import segment_sum_pairs
-        sum_e, sum_w = segment_sum_pairs(
-            energy.reshape(-1), weight.reshape(-1), seg,
-            num_segments=num_segments)
-        return (sum_e[:-1].reshape(n_tris, GUIDE_BUCKETS),
-                sum_w[:-1].reshape(n_tris, GUIDE_BUCKETS))
-    # one scatter for both quantities: segment_sum over a trailing feature
-    # dim costs the same sort/scatter as a scalar one
+    # one scatter for both quantities (a trailing feature dim); on the GPU
+    # XLA lowers it to atomic adds, as kernel_update_buckets does
     both = jnp.stack([energy.reshape(-1), weight.reshape(-1)], axis=-1)
     sums2 = jax.ops.segment_sum(both, seg, num_segments=num_segments)
     return (sums2[:-1, 0].reshape(n_tris, GUIDE_BUCKETS),

@@ -1,6 +1,6 @@
 """The wavefront path-tracing engine.
 
-TPU-native counterpart of the reference Pathtracer (src/pathtracer.h:46-311):
+Counterpart of the reference Pathtracer (src/pathtracer.h:46-311):
 one jitted `render_sample` runs the whole generate → extend → shade → connect
 wavefront for a sample, with the bounce loop as a `lax.while_loop` carrying
 fixed-shape SoA state (alive masks instead of AtomicQueues), followed by the
@@ -8,7 +8,7 @@ fused guiding update and framebuffer accumulation. The host loop only decides
 sample counts and toggles, mirroring Pathtracer::Render's orchestration
 (src/pathtracer.h:224-302).
 
-Design notes (TPU-first):
+Design notes:
   * everything is pixel-indexed and statically shaped — XLA compiles exactly
     one program per (resolution, toggle set); camera motion, sample index and
     rand counters are traced scalars, so interaction never recompiles;
@@ -45,11 +45,6 @@ TAIL2_START = int(_os.environ.get('CPT_TAIL2_START', '8'))
 TAIL2_DIV = int(_os.environ.get('CPT_TAIL2_DIV', '32'))
 TAIL_MIN_LANES = 131072
 
-# barycentrics from the traversal kernel's leaf pass (drops the shade-side
-# re-intersect + its 9-column vert gather); off switches shade back to the
-# reference-style re-intersection (src/kernels.h:585-619) for A/B
-WANT_UV = _os.environ.get('CPT_WANT_UV', '1') != '0'
-
 # the reference trains the radiance cache for the first 100 converge samples
 # (HCACHE && converge && sampleIndex < 100, src/pathtracer.h:292); module
 # constant so unbiasedness tests can shrink the window
@@ -69,73 +64,10 @@ class _BounceCarry(NamedTuple):
     rays_traced: jnp.ndarray  # i64-ish f32 counter: extend + connect rays
 
 
-def _sort_order(ro, rd, bounds, alive=None, direction_major=False):
-    """Coherence sort key for packet traversal: 27-bit morton code of the ray
-    origin (9 bits/axis against the world bounds) with the 3-bit direction
-    octant as the minor key. Groups bounce-wavefront rays into packets that
-    share BVH subtrees (the TPU replacement for the reference's abandoned
-    CUDA ray sorting, src/raySorting.h — cheap here, and packets NEED it).
-
-    Dead lanes sort LAST: they compact into packets of nothing but corpses,
-    which the kernel retires in one step — so a lockstep bounce costs
-    proportionally to its LIVE rays, the moral equivalent of the reference's
-    shrinking wavefront queues (AtomicQueue swap, src/kernels.h:841-846)."""
-    q = jnp.clip((ro - bounds[0]) / bounds[1], 0.0, 1.0)
-    q = (q * 511.0).astype(jnp.int32)
-
-    def spread(v):
-        v = (v | (v << 16)) & 0x030000FF
-        v = (v | (v << 8)) & 0x0300F00F
-        v = (v | (v << 4)) & 0x030C30C3
-        v = (v | (v << 2)) & 0x09249249
-        return v
-
-    morton = (spread(q[:, 0]) | (spread(q[:, 1]) << 1)
-              | (spread(q[:, 2]) << 2))
-    if direction_major:
-        # bounce-wavefront key: COARSE origin morton (5 bits/axis) major,
-        # FINE cube-map direction (face + 5x5 bits of u,v) minor. The sweep
-        # in tools/sortkey_sweep.py: this ordering gives the smallest packet
-        # unions (114 steps/packet vs 166 for fine-morton/coarse-dir and 357
-        # unsorted on sibenik bounce-1 wavefronts) — group by neighborhood
-        # first, then by tight direction cone within it.
-        ax, ay, az = (jnp.abs(rd[:, 0]), jnp.abs(rd[:, 1]),
-                      jnp.abs(rd[:, 2]))
-        face = jnp.where(ax >= jnp.maximum(ay, az), 0,
-                         jnp.where(ay >= az, 1, 2))
-        m = jnp.maximum(jnp.maximum(ax, ay), az) + 1e-20
-        # component picks as arithmetic selects: a take_along_axis here
-        # compiles to a 414k-row gather costing ~5 ms per bounce on TPU
-        # (measured, tools/tpu_op_profile.py); the select chain is
-        # bit-identical and fuses to nothing
-        rx, ry, rz = rd[:, 0], rd[:, 1], rd[:, 2]
-
-        def pick(idx):
-            return jnp.where(idx == 0, rx, jnp.where(idx == 1, ry, rz))
-
-        neg = pick(face) < 0
-        u = pick((face + 1) % 3) / m
-        v = pick((face + 2) % 3) / m
-        qu = jnp.clip(((u + 1.0) * 15.5).astype(jnp.int32), 0, 31)
-        qv = jnp.clip(((v + 1.0) * 15.5).astype(jnp.int32), 0, 31)
-        dir13 = ((((face << 1) | neg.astype(jnp.int32)) << 10)
-                 | (qu << 5) | qv)
-        morton15 = ((morton >> 12) & 0x7FFF)     # top 5 bits per axis
-        key = (morton15 << 13) | dir13
-    else:
-        octant = ((rd[:, 0] > 0).astype(jnp.int32)
-                  | ((rd[:, 1] > 0).astype(jnp.int32) << 1)
-                  | ((rd[:, 2] > 0).astype(jnp.int32) << 2))
-        key = (morton << 3) | octant
-    if alive is not None:
-        key = jnp.where(alive, key, jnp.int32(2 ** 31 - 1))
-    return jnp.argsort(key)
-
-
 def _tile_coords(lanes, width: int):
-    """Lane -> pixel mapping in 8x16-tile order: each 128-lane traversal
-    packet is one compact 8-row x 16-column pixel tile instead of a thin
-    scanline strip (tighter ray cones -> smaller packet unions)."""
+    """Lane -> pixel mapping in 8x16-tile order: each 128 consecutive lanes
+    are one compact 8-row x 16-column pixel tile instead of a thin scanline
+    strip, so a CUDA block of the traversal kernel walks a tight ray cone."""
     tpr = width // 16
     g = lanes // 128
     w = lanes % 128
@@ -161,9 +93,8 @@ def tile_permutation(width: int, height: int):
 def tile_unpermute(arr, width: int, band_h: int, bands: int = 1):
     """Tile-order lanes -> pixel (row-major) order as a pure
     reshape/transpose: the tile layout is structured (lane = tile-major,
-    8x16 tiles), so its inverse is a layout transform — ~10x cheaper on TPU
-    than the equivalent 307k-row gather (tools/interactive_profile.py:
-    fusion.372, 3.6 ms/frame at 640x480 vs ~0.3 ms for the copy).
+    8x16 tiles), so its inverse is a layout transform instead of a
+    gather.
     `arr` is [bands*band_h*width, C...]; bands are already pixel-major."""
     th = band_h // 8
     tpr = width // 16
@@ -175,7 +106,7 @@ def tile_unpermute(arr, width: int, band_h: int, bands: int = 1):
 
 @partial(jax.jit, static_argnames=('nee', 'cache_on', 'max_bounces',
                                    'width', 'height', 'full_height',
-                                   'guide_axis', 'wide_depth', 'defer_guide',
+                                   'guide_axis', 'defer_guide',
                                    'tile_order', 'spp', 'guide_off'))
 def render_sample(scene, dyn, camera, radiance: RadianceState,
                   lum, alb, sample_idx, rand_idx, guide_enabled,
@@ -183,7 +114,7 @@ def render_sample(scene, dyn, camera, radiance: RadianceState,
                   *, nee: bool, cache_on: bool, max_bounces: int,
                   width: int, height: int, full_height: int = 0,
                   row_offset=0, guide_axis: str | None = None,
-                  wide_depth: int = 0, defer_guide: bool = False,
+                  defer_guide: bool = False,
                   tile_order: bool = False, spp: int = 1,
                   guide_off: bool = False):
     """Trace `spp` samples per pixel; returns (lum', alb', radiance',
@@ -192,9 +123,8 @@ def render_sample(scene, dyn, camera, radiance: RadianceState,
     Mirrors the sample loop in Pathtracer::Render (src/pathtracer.h:255-301);
     with spp > 1 several iterations are BATCHED into one wavefront of
     spp*width*height lanes (sample-major blocks). This amortizes the
-    per-bounce fixed costs (sorts, shade dispatches, kernel launches) over
-    spp x the rays, and the coherence sort groups similar rays across
-    samples into tighter traversal packets. Each sample's lanes draw from a
+    per-bounce fixed costs (shade dispatches, kernel launches) over spp x
+    the rays. Each sample's lanes draw from a
     disjoint rand_idx window (stride sized for the worst-case advancement,
     including multi-round tail narrowing) so streams stay decorrelated;
     spp=1 is bit-identical to the unbatched engine.
@@ -206,7 +136,7 @@ def render_sample(scene, dyn, camera, radiance: RadianceState,
     sharded render is bit-identical to single-chip.
 
     With tile_order=True lanes map to pixels in 8x16-tile order so each
-    traversal packet is a compact pixel tile; accumulators come back in LANE
+    block of 128 lanes is a compact pixel tile; accumulators come back in LANE
     order (unpermute with tile_permutation for display). RNG streams are
     keyed on pixel coordinates, so the rendered image is identical either
     way."""
@@ -243,9 +173,6 @@ def render_sample(scene, dyn, camera, radiance: RadianceState,
     else:
         soff = jnp.uint32(0)
         samp = sample_idx
-    # sorting only pays on the packet path (static shape-based decision)
-    from ..ops.dispatch import use_sorted_packets
-    do_sort = use_sorted_packets(dyn)
 
     # generate primary rays (kernel_generate_primary_rays, kernels.h:493-501;
     # camera jitter uses the raw xorshift stream, types.h:641-658)
@@ -269,9 +196,8 @@ def render_sample(scene, dyn, camera, radiance: RadianceState,
         return (c.bounce < max_bounces) & jnp.any(c.alive)
 
     # blue-noise texture read is constant per pixel: the caller can pass the
-    # per-lane values (hoisted to engine init — the 414k-lane 2D gather costs
-    # ~5 ms per band-sample, tools/tpu_op_profile.py); fall back to gathering
-    # here for direct callers
+    # per-lane values (hoisted to engine init); fall back to gathering here
+    # for direct callers
     if bn_lanes is not None:
         bn_all = (jnp.tile(bn_lanes, spp) if spp > 1 else bn_lanes)
     else:
@@ -279,20 +205,9 @@ def render_sample(scene, dyn, camera, radiance: RadianceState,
         bnh = scene.blue_noise.shape[0]
         bn_all = scene.blue_noise[ys % bnh, xs % bnw]
 
-    def _bounce_body(c: _BounceCarry, xs_l, ys_l, soff_l, samp_l, bn_l,
-                     Bl: int, sort_now: bool = True):
-        # extend: closest hit. On the packet path bounce rays (everything
-        # after the tile-ordered primaries) are morton+octant sorted into
-        # coherent packets. sort_now=False on the PEELED bounce 0 (below):
-        # primaries are already tile-coherent, so its argsort + the 4
-        # permute fusions around trace (~7 ms/frame at 640x480,
-        # tools/interactive_profile.py) buy nothing.
-        order = (_sort_order(c.ro, c.rd, dyn.bounds, c.alive,
-                             direction_major=True)
-                 if (do_sort and sort_now) else None)
-        hit = trace(scene, dyn, c.ro, c.rd, active=c.alive,
-                    wide_depth=wide_depth, order=order,
-                    coherent=not sort_now, want_uv=WANT_UV)
+    def _bounce_body(c: _BounceCarry, xs_l, ys_l, soff_l, samp_l, bn_l):
+        # extend: closest hit
+        hit = trace(scene, dyn, c.ro, c.rd, active=c.alive)
 
         out = shade(scene, dyn, c.ro, c.rd, hit, c.state, c.alive,
                     xs_l, ys_l, c.rand_idx + soff_l, samp_l, c.bounce,
@@ -300,19 +215,11 @@ def render_sample(scene, dyn, camera, radiance: RadianceState,
         rand_idx2 = c.rand_idx + jnp.uint32(1)
 
         # connect: NEE shadow rays traced immediately (kernel_connect,
-        # src/kernels.h:799-810). Origins are this bounce's hit points:
-        # sorted by the same morton+octant key toward the light.
+        # src/kernels.h:799-810), from the light to this bounce's hit points
         if nee:
-            # shadow rays start ON the light (inverted, kernels.h:746-750),
-            # so origin-morton degenerates — key on the DESTINATION surface
-            sdest = out.shadow_o + out.shadow_d * out.shadow_tmax[:, None]
-            sorder = (_sort_order(sdest, out.shadow_d, dyn.bounds,
-                                  out.shadow_active)
-                      if (do_sort and sort_now) else None)
             sh = trace(scene, dyn, out.shadow_o, out.shadow_d,
                        t_max=out.shadow_tmax, active=out.shadow_active,
-                       any_hit=True, wide_depth=wide_depth, order=sorder,
-                       coherent=not sort_now)
+                       any_hit=True)
             add = out.shadow_active & ~sh.intersected
             st2 = out.state._replace(
                 accucolor=out.state.accucolor
@@ -345,46 +252,31 @@ def render_sample(scene, dyn, camera, radiance: RadianceState,
             rays_traced=c.rays_traced + n_rays)
 
     def body(c: _BounceCarry):
-        return _bounce_body(c, xs, ys, soff, samp, bn_all, L)
-
-    # peel bounce 0 out of the while_loop on the sorted-packet path: the
-    # primary wavefront (and its NEE shadow wave, whose destinations are the
-    # primary hit points) is tile-coherent by construction, so the peeled
-    # copy runs WITHOUT the sort + permutes. Per-ray results are identical
-    # (traversal is exact per ray; only packet grouping changes, which can
-    # flip measure-zero exact-t ties / rescued grazing visits — PERF.md).
-    peel_b0 = do_sort and tile_order and max_bounces >= 1
+        return _bounce_body(c, xs, ys, soff, samp, bn_all)
 
     # ---- tail narrowing ----
     # After TAIL_START bounces, branch termination + Russian roulette leave
     # only a fraction of lanes alive, but a lockstep bounce still costs the
-    # full wavefront width in shade math, sorts and permutes. So survivors
+    # full wavefront width in shade math and traversal launches. So survivors
     # are compacted into a B/TAIL_DIV-wide buffer and run to completion
     # there, in as many rounds as needed (unbiased — no ray is dropped).
     # SampleCache rows ride through the compaction and scatter back, so
     # guiding updates for bounces < MAX_CACHE_DEPTH stay identical to the
-    # full-width loop even when TAIL_START < MAX_CACHE_DEPTH. (Measured on
-    # the sibenik bench: TAIL_START=1/DIV=4 is a ~3% net LOSS — bounce-1
-    # cost is the incoherent traversal of the live rays, which narrowing
-    # does not shrink, and the compaction gather/scatter overhead exceeds
-    # the saved full-width shade — so the default stays at bounce 3.)
-    # Disabled for small frames where it can't pay off.
+    # full-width loop even when TAIL_START < MAX_CACHE_DEPTH. Disabled for
+    # small frames where it can't pay off.
     use_tail = max_bounces > TAIL_START and L >= TAIL_MIN_LANES
 
     if use_tail:
         main_cond = lambda c: (c.bounce < TAIL_START) & jnp.any(c.alive)  # noqa: E731
     else:
         main_cond = cond
-    if peel_b0:
-        carry = _bounce_body(carry, xs, ys, soff, samp, bn_all, L,
-                             sort_now=False)
     final = jax.lax.while_loop(main_cond, body, carry)
 
     if use_tail:
         # narrowing LEVELS: (start_bounce, end_bounce, buffer_width). Each
         # level compacts the still-pending lanes into an ever-narrower buffer
         # — RR halves the live set every bounce, so the per-bounce fixed
-        # costs (shade, sorts, permutes) must shrink with it, not stay at B.
+        # costs (shade, gathers) must shrink with it, not stay at B.
         levels = [(TAIL_START, min(TAIL2_START, max_bounces),
                    L // TAIL_DIV)]
         if max_bounces > TAIL2_START:
@@ -408,10 +300,8 @@ def render_sample(scene, dyn, camera, radiance: RadianceState,
 
         # Packed tail carry: each round's compaction reads, and its scatter-
         # back writes, ONE wide [L, W] f32 buffer instead of ~9 per-field
-        # arrays. XLA's scatter cost is per update ROW, not per byte (the 4
-        # narrow [L,3] scatter-backs alone were ~19 ms/band-sample at round-3
-        # HEAD, tools/tpu_op_profile.py), so fusing the fields into one row
-        # cuts the round overhead by the field count. Every packed field is
+        # arrays — one gather and one scatter per round instead of one per
+        # field. Every packed field is
         # f32-exact (colors/dirs are f32, flags are 0/1, pixel coords and
         # rand offsets < 2^24), so this is bit-identical to per-field carry.
         # Ray state is read-only within a level (a lane runs at most one
@@ -510,7 +400,7 @@ def render_sample(scene, dyn, camera, radiance: RadianceState,
                         sget('ys').astype(jnp.int32),
                         sget('soff').astype(jnp.uint32) if spp > 1 else soff,
                         sget('samp').astype(jnp.uint32) if spp > 1 else samp,
-                        sget('bn'), C)
+                        sget('bn'))
 
                 sf = jax.lax.while_loop(
                     lambda c: (c.bounce < end_b) & jnp.any(c.alive),
@@ -596,11 +486,10 @@ def render_sample(scene, dyn, camera, radiance: RadianceState,
 
     def _per_sample_sums():
         """Per-sample bucket sums from ONE scatter: segment ids offset by
-        sample index (tri + s*n_tris), so the sort+scatter structure and
-        cost match the combined path exactly while the sums come back per
-        sample. (Per-sample accumulate_buckets instances — the obvious
-        form — multiplied the band program's sort/Pallas ops by spp and
-        blew the remote compile past 25 min.)"""
+        sample index (tri + s*n_tris), so the scatter structure and cost
+        match the combined path exactly while the sums come back per
+        sample (per-sample accumulate_buckets instances would multiply the
+        band program's scatters by spp)."""
         from .guiding import accumulate_buckets
         s_vec = jnp.arange(spp * B, dtype=jnp.int32) // B
         off = final.cache._replace(
@@ -670,15 +559,13 @@ class Pathtracer:
     """
 
     # a single dispatch handles at most this many ray lanes; larger frames
-    # are rendered in horizontal bands (bounded device memory — the 32-bounce
-    # fused program at 2M+ lanes exceeds a v5e's HBM)
-    # 360k lanes is the measured sweet spot (bigger bands lose to the
-    # XLA gather engine's marginal row cost; single-band 1080p benched 10%
-    # slower than 5 bands)
-    MAX_LANES_PER_DISPATCH = int(_os.environ.get('CPT_MAX_LANES', '360000'))
+    # are rendered in horizontal bands (bounded device memory). One band of
+    # 1080p at 2 spp (4,147,200 lanes) measured 60% faster than 9 bands of
+    # 120 rows on an H100, with 1.56 GB of temporaries (PERF.md)
+    MAX_LANES_PER_DISPATCH = int(_os.environ.get('CPT_MAX_LANES', '4147200'))
 
     # converge samples batched per dispatch (render_sample spp): amortizes
-    # per-bounce fixed costs and tightens sorted packets across samples
+    # per-bounce fixed costs
     SPP_PER_DISPATCH = int(_os.environ.get('CPT_SPP', '1'))
 
     def __init__(self, scene, width: int = 640, height: int = 480,
@@ -696,8 +583,8 @@ class Pathtracer:
         bands = -(-height // rows_per_band)
         while height % bands:        # bands must divide the height evenly
             bands += 1
-        # packet tiles want 8-row-aligned bands; relax the lane cap a little
-        # to find one (e.g. 1080p -> 5 bands of 216 rows)
+        # the tile lane order wants 8-row-aligned bands; relax the lane cap
+        # a little to find one
         if width % 16 == 0 and height % 8 == 0:
             b = bands
             while b >= 1 and not (height % b == 0 and (height // b) % 8 == 0):
@@ -729,7 +616,7 @@ class Pathtracer:
 
     def _bn_bands(self):
         """Per-band per-lane blue-noise values, hoisted out of render_sample
-        (the in-jit 2D gather costs ~5 ms per band-sample on TPU). Lane ->
+        (a 2D gather per band-sample otherwise). Lane ->
         pixel mapping mirrors render_sample's."""
         if self._bn_cache is not None:
             return self._bn_cache
@@ -771,9 +658,6 @@ class Pathtracer:
             max_bounces = (self.scene.interactive_depth + 1) if should_clear \
                 else MAX_RAY_DEPTH
 
-        # round the wide-BVH stack bound up to a multiple of 4 so small scene
-        # edits don't force recompiles
-        wd = -(-self.scene.wide_depth // 4) * 4 if self.scene.wide_depth else 0
         # interactive (clear) frames render spp=1 for latency; converge
         # frames batch self.spp samples into one dispatch per band
         use_spp = 1 if should_clear else self.spp
@@ -791,7 +675,7 @@ class Pathtracer:
                 use_spp = max(1, GUIDE_TRAIN_SAMPLES - self.sample_idx)
             guide = jnp.asarray(g_on)
             ridx, rays = self._sample_dispatch(camera, guide, g_on,
-                                               max_bounces, wd, use_spp)
+                                               max_bounces, use_spp)
             # keep counters as device scalars: no host sync per sample, so
             # samples pipeline asynchronously like the reference's stream
             self.rand_idx = ridx
@@ -799,7 +683,7 @@ class Pathtracer:
             self.rays_traced = self.rays_traced + rays
 
     def _sample_dispatch(self, camera, guide, g_on: bool, max_bounces: int,
-                         wd: int, use_spp: int):
+                         use_spp: int):
         """One sample over the whole frame: band-split render_sample calls
         with deferred guiding partial sums, EMA applied exactly once. The
         multi-chip engine (parallel/mesh.ShardedPathtracer) overrides ONLY
@@ -816,7 +700,7 @@ class Pathtracer:
                 guide, bn_bands[0],
                 nee=self.nee, cache_on=self.cache,
                 max_bounces=max_bounces,
-                width=self.width, height=self.height, wide_depth=wd,
+                width=self.width, height=self.height,
                 tile_order=self.tile_order, spp=use_spp,
                 guide_off=not g_on)
             return ridx, rays
@@ -839,7 +723,7 @@ class Pathtracer:
                 width=self.width, height=self.band_h,
                 full_height=self.height,
                 row_offset=b * self.band_h,
-                wide_depth=wd, defer_guide=True,
+                defer_guide=True,
                 tile_order=self.tile_order, spp=use_spp,
                 guide_off=not g_on)
             lum_parts.append(lum_b)

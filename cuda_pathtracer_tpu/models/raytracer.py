@@ -6,7 +6,7 @@ recursive reflect/refract with Fresnel reweighting and Beer absorption, the
 checkerboard plane, sky constant (0.2, 0.3, 0.6), depth 2 interactive / 7
 converged.
 
-TPU-first restructuring: the reference recurses per pixel; here the recursion
+Wavefront restructuring: the reference recurses per pixel; here the recursion
 tree is evaluated level-synchronously — each depth is one batched wavefront
 (traversal + shading over all live recursion nodes at that depth), children
 (refract/reflect) are spawned into the next level's lane set, and node
@@ -34,13 +34,13 @@ from . import film
 SKY_COLOR = (0.2, 0.3, 0.6)  # src/raytracer.h:89
 
 
-def _shade_level(scene, dyn, ro, rd, weight, pixel, active, width, wide_depth=0):
+def _shade_level(scene, dyn, ro, rd, weight, pixel, active, width):
     """Shade one recursion level; returns (contribution [B?,3] scattered adds,
     child rays). Mirrors Raytracer::radiance (src/raytracer.h:85-165)."""
     f3 = lambda m: m[..., None]  # noqa: E731
     B = ro.shape[0]
 
-    hit = trace(scene, dyn, ro, rd, active=active, wide_depth=wide_depth)
+    hit = trace(scene, dyn, ro, rd, active=active)
     live = hit.intersected
 
     # sky for misses (raytracer.h:89)
@@ -112,8 +112,7 @@ def _shade_level(scene, dyn, ro, rd, weight, pixel, active, width, wide_depth=0)
         shadow = trace(scene, dyn,
                        jnp.broadcast_to(sro, ro.shape), fl,
                        t_max=dist - 2.0 * EPS,
-                       active=shadow_active, any_hit=True,
-                       wide_depth=wide_depth)
+                       active=shadow_active, any_hit=True)
         lit = shadow_active & ~shadow.intersected
         direct = direct + jnp.where(f3(lit),
                                     lcol * f3(vm.dot(-fl, collider_normal) / d2),
@@ -157,10 +156,9 @@ def _compact(ro, rd, w, pixel, active, cap: int):
     return (ro[order], rd[order], w[order], pixel[order], active[order])
 
 
-@partial(jax.jit, static_argnames=('width', 'height', 'max_depth',
-                                   'wide_depth'))
+@partial(jax.jit, static_argnames=('width', 'height', 'max_depth'))
 def render_whitted(scene, dyn, camera, *, width: int, height: int,
-                   max_depth: int, wide_depth: int = 0):
+                   max_depth: int):
     """One full Whitted frame -> f32[H*W, 3] (Raytracer::Render,
     src/raytracer.h:62-83 — one jitter-free ray per pixel)."""
     B = width * height
@@ -177,8 +175,7 @@ def render_whitted(scene, dyn, camera, *, width: int, height: int,
 
     for depth in range(max_depth):
         contrib, pix, children = _shade_level(scene, dyn, ro, rd, weight,
-                                              pixel, active, width,
-                                              wide_depth)
+                                              pixel, active, width)
         out = out.at[pix].add(contrib, mode='drop')
         if depth == max_depth - 1:
             break
@@ -198,7 +195,7 @@ class Raytracer:
     """Interactive Whitted mode (the reference's Raytracer Application,
     src/raytracer.h:17-31). Runs on whatever JAX backend is active — the
     'CPU mode' of the reference maps to jit-on-CPU, but it runs equally on
-    the TPU."""
+    the GPU."""
 
     def __init__(self, scene, width: int = 640, height: int = 480,
                  skydome: str | None = None):
@@ -217,10 +214,9 @@ class Raytracer:
         if should_clear:
             self.dyn = self.scene.dynamic_arrays()
         max_depth = 2 if should_clear else 7   # raytracer.h:65
-        wd = -(-self.scene.wide_depth // 4) * 4 if self.scene.wide_depth else 0
         self.frame = render_whitted(self.arrays, self.dyn, camera,
                                     width=self.width, height=self.height,
-                                    max_depth=max_depth, wide_depth=wd)
+                                    max_depth=max_depth)
 
     def finish(self):
         self.frame.block_until_ready()

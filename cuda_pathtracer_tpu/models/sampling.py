@@ -70,14 +70,11 @@ def hemisphere_cached_cols(normal, cols, radiance_total,
                            s_pick, r0_raw, r1_raw):
     """hemisphere_cached over 8 SEPARATE column vectors.
 
-    The [L,8] array form makes XLA lay the CDF walk out column-major
-    ({0,1}), and it REMATERIALIZES the cache-row gather from the raw
-    [T,8] table to feed it — a pathological ~20 ms 8-col-row gather per
-    bounce (tools/tpu_op_profile.py fusion.1271, tools/cache_gather_bench.py:
-    unsorted 8-col row gathers fall off a cliff that 16+-col rows don't
-    hit). Unrolling the walk into per-column [L] arithmetic keeps every
-    tensor lane-major and the only cache read is the merged 24-col row
-    gather. Bit-identical: the unrolled prefix adds ARE cumsum's
+    The [L,8] array form made XLA lay the CDF walk out column-major
+    ({0,1}) and REMATERIALIZE the cache-row gather from the raw [T,8]
+    table to feed it. Unrolling the walk into per-column [L] arithmetic
+    keeps every tensor lane-major and the only cache read is the merged
+    24-col row gather. Bit-identical: the unrolled prefix adds ARE cumsum's
     sequential order, and the masked picks are the same one-hot sums.
     """
     sample = s_pick * radiance_total
@@ -99,9 +96,8 @@ def hemisphere_cached_cols(normal, cols, radiance_total,
     r0 = r0_min * r0_raw + r0_max * (1.0 - r0_raw)
     r1 = r1_min * r1_raw + r1_max * (1.0 - r1_raw)
 
-    # one-hot select instead of take_along_axis: the gather form costs a
-    # ~6 ms 414k-row gather per bounce on TPU (tools/tpu_op_profile.py);
-    # exactly one term of the masked sum is nonzero, so this is bit-exact
+    # one-hot select instead of take_along_axis (a per-lane gather); exactly
+    # one term of the masked sum is nonzero, so this is bit-exact
     picked = jnp.zeros(cols[0].shape, jnp.float32)
     for j in range(GUIDE_BUCKETS):
         picked = picked + jnp.where(bucket == j, cols[j], 0.0)

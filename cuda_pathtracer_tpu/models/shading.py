@@ -1,7 +1,7 @@
 """Wavefront shading: the vectorized material/NEE/bounce stage.
 
 Behavioral mirror of kernel_shade + kernel_connect (src/kernels.h:513-810),
-restructured for TPU SIMT-by-select execution: every lane computes every
+restructured for SIMT-by-select execution: every lane computes every
 branch and the results are merged with masks, while the per-lane RNG stream is
 advanced only at the draw sites the reference would actually execute on that
 lane (sampling.masked_rand) — so draw sequences match the CUDA threads
@@ -24,7 +24,6 @@ from . import sky as sky_mod
 from .guiding import SAMPLE_IGNORE, SAMPLE_TERMINATE, SAMPLE_BUCKET, RadianceState
 from ..core import rng as _rng
 from ..core import vecmath as vm
-from ..ops import intersect as isect
 from ..ops.lookup import table_lookup
 from ..ops.traverse import Hit, PRIM_TRIANGLE, PRIM_SPHERE, PRIM_PLANE
 from ..constants import EPS, PI
@@ -140,61 +139,38 @@ def shade(scene, dyn, ro, rd, hit: Hit, state: TraceState, ray_active,
 
     # ---- hit decode: every per-hit lookup is ONE fat-row gather ----
     pid = jnp.maximum(hit.prim_id, 0)
-    # ONE pid-keyed gather serves gid|inst, the world verts (cols 2:11, for
-    # barycentric re-intersect texturing) AND the baked shade attrs (cols
+    # ONE pid-keyed gather serves gid|inst AND the baked shade attrs (cols
     # 11:27: model-space normal/tangent/bitangent, uvs, mid — scene.py bakes
-    # tri_packed[gid] per world tri). Separate gathers each cost a full
-    # dispatch (~1-3 ms staged, 8 ms when MSA's VMEM budget leaves one in
-    # HBM, tools/interactive_profile.py).
-    # NOTE(perf, measured): gathering dyn.tri_meta DIRECTLY (a while-loop
-    # parameter) runs from HBM in a slow emitter at ~6.5 ms/bounce, while
-    # a CONCAT is assembled into VMEM by memory-space assignment
-    # (ConcatBitcast of async slice copies) and gathers at ~0.75 ms. MSA
-    # never prefetches the loop parameter itself (optimization_barrier/
-    # limit-raising probes: tools/scoped_vmem_engine_ab.py), but a
-    # swapped-half concat — which the algebraic simplifier cannot fold back
-    # into the parameter — recreates the staged-concat shape and gets the
-    # fast path.
+    # tri_packed[gid] per world tri), from a table of ONLY the columns this
+    # program reads: cache_on reads just gid|inst (attrs ride tri_guide
+    # below); cache_off needs the baked attrs too, minus tangent/bitangent
+    # when the scene has no normal maps. The traversal returns the
+    # barycentrics (hit.u/hit.v), so the world-vert columns are never read.
+    # The table is a swapped concat of column pieces (a single slice from
+    # col 0 would be folded back into the loop parameter by the algebraic
+    # simplifier). That shape, the >=8-column pad and the scalar column
+    # picks below are gather-layout choices whose cost on the GPU is not
+    # measured yet.
     tm = dyn.tri_meta
-    # Build the swapped staged concat from ONLY the columns this program
-    # reads: every MB of the derived table competes for MSA's VMEM budget,
-    # and when it loses the gather runs from HBM at ~3x the price
-    # (tools/interactive_profile.py). cache_on reads just gid|inst (attrs
-    # ride tri_guide below); cache_off needs the baked attrs too, minus
-    # tangent/bitangent when the scene has no normal maps. When the
-    # traversal emitted barycentrics (hit.u, the packet2 path) the 9
-    # world-vert columns drop out entirely — no re-intersect. The concat
-    # pieces must form a genuine SWAP (a single slice from col 0 would be
-    # folded back into the HBM parameter by the algebraic simplifier).
     has_nmap = int(scene.nmap_marker.shape[0]) > 0
-    have_uv = hit.u is not None
     # pid -> (gid, inst) by ARITHMETIC when the scene's world tris are few
     # contiguous per-instance blocks (always true by construction,
     # accel/toplevel.py emit; gate on block count so the unrolled chain
     # stays tiny): gid = pid + delta(block), inst = inst(block). This
-    # removes cols 0|1 from the gather below entirely — the [WT,2] form ran
-    # from HBM at ~13.7 ms/bounce at 829k lanes (tools/fusion_attrib.py
-    # fusion.1664) and padding it wider didn't change its placement.
+    # removes cols 0|1 from the gather below entirely.
     blocks = getattr(dyn, 'tri_blocks', None)
     n_blocks = int(blocks.shape[0]) if blocks is not None else 0
     use_decode = 1 <= n_blocks <= 64
     gi_cols = [] if use_decode else [0, 1]
-    verts = [] if have_uv else list(range(2, 11))
     if cache_on:
-        want = gi_cols + verts
+        want = gi_cols
     elif has_nmap:
-        want = gi_cols + verts + list(range(11, 27))
+        want = gi_cols + list(range(11, 27))
     else:
         # drop tangent/bitangent (old 14:20) and the pad
-        want = gi_cols + verts + list(range(11, 14)) + list(range(20, 27))
-    # Pad narrow programs to >=8 gathered columns with real neighbor cols:
-    # XLA's row-gather emitter falls off a cliff below 8 columns (a [T,2]
-    # gather costs 194 ms where the SAME table padded to 16 costs 0.80 ms,
-    # tools/cache_gather_bench.py w2 vs w2of16) — the cache_on+barycentric
-    # program reads only gid|inst and was paying ~13.7 ms/bounce for it
-    # (tools/fusion_attrib.py fusion.1664). The extra columns are unused
-    # (and unread: scalar col picks below), they only move the gather onto
-    # the wide fast path.
+        want = gi_cols + list(range(11, 14)) + list(range(20, 27))
+    # Pad narrow programs to >=8 gathered columns with real neighbor cols.
+    # The extra columns are unused (and unread: scalar col picks below).
     if want:
         pad_col = 11
         while len(want) < 8 and pad_col < 27:
@@ -221,8 +197,8 @@ def shade(scene, dyn, ro, rd, hit: Hit, state: TraceState, ray_active,
         _pos = {c: i for i, c in enumerate(cols)}
         tm_tab = jnp.concatenate([tm[:, a:b] for a, b in pieces], axis=1)
         tri_meta = tm_tab[pid]             # f32[B, len(cols)]
-        # SCALAR column picks only (block slices push XLA to the slow
-        # row-major gather emitter, tools/gather_layout_probe.py)
+        # SCALAR column picks only (block slices can push XLA to a
+        # row-major gather layout)
         mcol = lambda j: tri_meta[..., _pos[j]]  # noqa: E731
     else:
         mcol = None                        # decode covers every wanted col
@@ -346,20 +322,8 @@ def shade(scene, dyn, ro, rd, hit: Hit, state: TraceState, ray_active,
     has_tex = is_tri & (tex_id >= 0)
     has_nmap = is_tri & (ntex_id >= 0)
     needs_uv = has_tex | has_nmap
-    if have_uv:
-        # the traversal kernel emitted the winning triangle's Möller (u, v)
-        # from its leaf pass (same arithmetic on the same f32 inputs as the
-        # re-intersect below) — no vert gather, no re-intersection
-        tu, tv = hit.u, hit.v
-    else:
-        # world verts (same values as world.tris), rebuilt from SCALAR
-        # column slices: block slices ([..., 2:11]) push XLA to a row-major
-        # {1,0} gather emitter that costs ~20 ms/bounce; scalar-column
-        # consumers keep the ~5 ms column-major form
-        # (tools/gather_layout_probe.py)
-        tri9 = jnp.stack([mcol(j) for j in range(2, 11)], axis=-1)
-        _, _, tu, tv = isect.ray_triangle(ro, rd, tri9[..., 0:3],
-                                          tri9[..., 3:6], tri9[..., 6:9])
+    # the traversal returns the winning triangle's Möller (u, v)
+    tu, tv = hit.u, hit.v
     w0 = 1.0 - tu - tv
     uv_u = uvs[..., 0] * w0 + uvs[..., 2] * tu + uvs[..., 4] * tv
     uv_v = uvs[..., 1] * w0 + uvs[..., 3] * tu + uvs[..., 5] * tv
@@ -490,9 +454,8 @@ def shade(scene, dyn, ro, rd, hit: Hit, state: TraceState, ray_active,
     guided = take_diffuse & jnp.asarray(cache_on) & is_tri \
         & (vm.dot(collider_normal, original_normal) > 0.0)
     # column form: [L]-shaped slices of the merged 24-col row gather keep
-    # the CDF walk lane-major — the [L,8] array form makes XLA rematerialize
-    # the cache gather from the raw [T,8] table in a column-major layout, a
-    # ~20 ms/bounce pathological 8-col row gather (tools/cache_gather_bench.py)
+    # the CDF walk lane-major (the [L,8] array form made XLA rematerialize
+    # the cache gather from the raw [T,8] table in a column-major layout)
     rc = rc_row if rc_row is not None else radiance.cache[gid]
     rc_cols = [rc[..., j] for j in range(rc.shape[-1])]
     # radianceTotal is identically sum(cache) under our update rule — derive

@@ -42,9 +42,8 @@ def sample_sky(sky_img, direction):
     tx = (fu - x0)[..., None]
     ty = (fv - y0)[..., None]
 
-    # ONE batched gather for all four bilinear corners: each gather dispatch
-    # has a ~0.5 ms fixed cost on TPU (PERF.md), so 4 separate corner fetches
-    # per bounce would cost ~3 dispatches of pure overhead
+    # ONE batched gather for all four bilinear corners instead of four
+    # separate gather dispatches
     def flat(xi, yi):
         xi = jnp.mod(xi.astype(jnp.int32), w)
         yi = jnp.mod(yi.astype(jnp.int32), h)
@@ -60,16 +59,11 @@ def sample_sky(sky_img, direction):
 def build_sky_pairs(sky_img: np.ndarray) -> np.ndarray:
     """Horizontal texel-pair table [H*W, 6]: row (y*W + x) holds
     texel(x, y) ++ texel((x+1) mod W, y). Bilinear sampling then needs TWO
-    row gathers (bottom pair + top pair) instead of four corner rows —
-    gather cost on TPU is per ROW, nearly independent of row width
-    (PERF.md), so this halves the dominant per-bounce sky cost for the price
-    of a duplicated skydome in HBM.
-
-    NOTE(measured): a 12-wide one-gather QUAD table (all four corners per
-    row) was tried and is 14x SLOWER (32 ms vs 2.2 per interactive bounce
-    shade): XLA lays the [H*W, 12] table out column-major ({0,1}) for that
-    consumer shape, so each row fetch becomes 12 HBM reads strided 4.5 MB
-    apart. The [2, B]-indexed pair form keeps the row-contiguous layout."""
+    row gathers (bottom pair + top pair) instead of four corner rows, for
+    the price of a duplicated skydome in device memory. (A 12-wide QUAD
+    table was laid out column-major by XLA for this consumer shape, so each
+    row fetch became 12 strided reads; the [2, B]-indexed pair form keeps
+    the row-contiguous layout.)"""
     img = np.asarray(sky_img, np.float32)
     pairs = np.concatenate([img, np.roll(img, -1, axis=1)], axis=-1)
     return pairs.reshape(-1, 2 * img.shape[-1])
@@ -82,9 +76,8 @@ def sample_sky_pairs(sky_pairs, shape, direction, live=None):
     `live` masks lanes whose result the caller will consume: dead lanes
     gather row 0 instead of a direction-dependent random row. The sky pair
     table is the biggest gather table in the engine (27 MB for a 1500x750
-    HDR dome) and an incoherent all-lane gather from it costs ~30 ns/row vs
-    ~4 coherent (tools/interactive_profile.py: 18.6 ms/frame on the bounce
-    shade where nearly every lane hits a wall and is masked out anyway)."""
+    HDR dome), and on the bounce shade nearly every lane hits a wall and is
+    masked out anyway."""
     h, w = shape
     u, v = normal_to_uv(direction)
     fu = u * w - 0.5

@@ -1,108 +1,63 @@
-"""Traversal dispatch: Pallas packet kernel on TPU, fat-row wide BVH on CPU
-(and as the large-scene fallback), threaded walk for raw WorldArrays scenes.
+"""Traversal dispatch: the CUDA per-ray kernel on the GPU, XLA on the CPU.
 
-`wide_depth` is a static stack bound (rounded up by the caller to limit
-recompiles); 0 selects the narrow threaded traversal, which remains the
-semantics reference. The packet kernel requires its node tables to fit in
-VMEM (~100 MB on v5e per tools/pallas_probe_r2f.py) — scenes beyond that fall
-back to the XLA wide path automatically.
+`trace` lowers to ops/traverse_cuda.py on a CUDA device and to the threaded
+walk (ops/traverse.py, the semantics reference) on the CPU. The choice is
+made per lowering (`lax.platform_dependent`), so one process can render on
+both. Any other platform is an error.
 """
 from __future__ import annotations
 
 import jax
+import jax.numpy as jnp
 
+from . import intersect as isect
+from . import traverse_cuda
 from .traverse import traverse, Hit
-from .traverse_wide import traverse_wide
-from .traverse_packet import PacketTables, traverse_packet
-from .traverse_packet2 import MergedTable, traverse_packet2
-
-# beyond this many table rows (512 B each) the packet tables stop fitting
-# comfortably in VMEM alongside the pipeline buffers
-PACKET_MAX_ROWS = 180_000
-
-# hybrid large-scene traversal: this many of the table's first (BFS = top of
-# tree, most-visited) rows stay VMEM-resident; only deeper visits DMA from
-# HBM (traverse_packet2 split). ~77 MB of the ~120 MB VMEM budget.
-HYBRID_TOP_ROWS = int(__import__('os').environ.get(
-    'CPT_HYBRID_ROWS', '150000'))
-
-# Per-wavefront share-K depth (measured on-chip, tools/interactive_profile
-# round 4): share=0 on coherent waves is 1.2-1.35x SLOWER in-engine (the
-# multipush_lab 0.84x share-8 prim figure does not transfer), and share=16
-# is a wash on sorted waves (+4% closest, -18% any-hit). Default 8 for
-# everything; both knobs kept for re-measurement.
-SORTED_SHARE = int(__import__('os').environ.get('CPT_SORTED_SHARE', '8'))
-COHERENT_SHARE = __import__('os').environ.get('CPT_COHERENT_SHARE', '')
+from ..constants import T_MAX
 
 
-# 'auto': packet kernel on TPU, wide path on CPU (Mosaic is TPU-only; the
-# interpreter is far too slow for full renders). Tests force 'on' to exercise
-# the packet engine path end-to-end in interpret mode at tiny resolutions.
-PACKET_MODE = 'auto'
-
-# the v2 multi-push kernel (ops/traverse_packet2.py) is the default when its
-# merged table is present; CPT_PACKET_V1=1 forces the v1 split-table kernel
-PACKET_V1 = bool(int(__import__('os').environ.get('CPT_PACKET_V1', '0')))
-
-
-def use_packet_path(dyn) -> bool:
-    if PACKET_MODE == 'off':
+def gpu_present() -> bool:
+    """Whether this process has a CUDA backend (the kernel library is then
+    built and registered before the first lowering)."""
+    try:
+        return any(d.platform == 'gpu' for d in jax.devices('gpu'))
+    except RuntimeError:
         return False
-    n_rows = int(dyn.packet_inner.shape[0]) + int(dyn.packet_leaf.shape[0])
-    if not (0 < n_rows <= PACKET_MAX_ROWS):
-        return False
-    return PACKET_MODE == 'on' or jax.default_backend() != 'cpu'
 
 
-def use_packet2(dyn) -> bool:
-    return (PACKET_MODE != 'off' and not PACKET_V1
-            and int(dyn.packet_merged.shape[0]) > 1)
-
-
-def use_sorted_packets(dyn) -> bool:
-    """Coherence sorting pays on any packet path (v1 VMEM, v2 VMEM or
-    v2 HBM-DMA); mirrors trace()'s dispatch gating."""
-    interp = jax.default_backend() == 'cpu'
-    v2 = use_packet2(dyn) and (PACKET_MODE == 'on' or not interp)
-    return v2 or use_packet_path(dyn)
+def _with_barycentrics(hit: Hit, world, ro, rd) -> Hit:
+    """The XLA path's (u, v): the winning triangle re-intersected with the
+    same Möller arithmetic the kernel runs (src/kernels.h:585-619)."""
+    tri = world.tris[jnp.clip(hit.prim_id, 0, world.tris.shape[0] - 1)]
+    _, _, u, v = isect.ray_triangle(ro, rd, tri[..., 0:3], tri[..., 3:6],
+                                    tri[..., 6:9])
+    return hit._replace(u=u, v=v)
 
 
 def trace(scene, dyn, ro, rd, *, t_max=None, active=None,
-          any_hit: bool = False, stop_on_hit=None, wide_depth: int = 0,
-          order=None, coherent: bool = False, want_uv: bool = False) -> Hit:
-    """`order` (optional i32[B] permutation) pre-sorts rays for packet
-    coherence; results come back in the caller's original ray order.
-    `coherent` hints that the wavefront is tile/camera-coherent — today it
-    only routes the CPT_COHERENT_SHARE override (measured: share-8 is best
-    there too; see SORTED_SHARE note above).
-    `want_uv` asks for the winning triangle's barycentrics in Hit.u/Hit.v;
-    only the packet2 path produces them (other tiers return None and
-    shade() falls back to the re-intersect, src/kernels.h:585-619)."""
-    interp = jax.default_backend() == 'cpu'
-    if wide_depth > 0 and use_packet2(dyn) and (
-            PACKET_MODE == 'on' or not interp):
-        n_rows = int(dyn.packet_merged.shape[0])
-        # beyond the VMEM cap the table stays in HBM with per-visit DMA for
-        # rows past the hybrid split (the top of the tree stays resident) —
-        # the 2M-triangle class traverses on the same kernel
-        hbm = n_rows > PACKET_MAX_ROWS
-        return traverse_packet2(
-            scene, MergedTable(dyn.packet_merged, wide_depth), ro, rd,
-            t_max=t_max, active=active, any_hit=any_hit,
-            stop_on_hit=stop_on_hit, order=order, interpret=interp,
-            hbm=hbm, split=(HYBRID_TOP_ROWS & ~7) if hbm else 0,
-            share=(int(COHERENT_SHARE) if (coherent and COHERENT_SHARE)
-                   else (None if hbm else SORTED_SHARE)),
-            want_uv=want_uv and not any_hit)
-    if wide_depth > 0 and use_packet_path(dyn):
-        tables = PacketTables(dyn.packet_inner, dyn.packet_leaf, wide_depth)
-        return traverse_packet(scene, tables, ro, rd, t_max=t_max,
-                               active=active, any_hit=any_hit,
-                               stop_on_hit=stop_on_hit, order=order,
-                               interpret=interp)
-    if wide_depth > 0:
-        return traverse_wide(scene, dyn.wide_rows, wide_depth, ro, rd,
-                             t_max=t_max, active=active, any_hit=any_hit,
-                             stop_on_hit=stop_on_hit)
-    return traverse(scene, dyn.world, ro, rd, t_max=t_max, active=active,
-                    any_hit=any_hit, stop_on_hit=stop_on_hit)
+          any_hit: bool = False, stop_on_hit=None) -> Hit:
+    """Closest-hit (or any-hit / per-lane stop-on-hit) trace of f32[B, 3]
+    rays. Returns Hit with the winning triangle's barycentrics in u/v."""
+    if gpu_present():
+        traverse_cuda.load_library()
+    B = ro.shape[:-1]
+    if t_max is None:
+        t_max = jnp.full(B, T_MAX, jnp.float32)
+    if active is None:
+        active = jnp.ones(B, bool)
+    if stop_on_hit is None:
+        stop_on_hit = jnp.full(B, bool(any_hit))
+
+    def on_gpu(ro, rd, t_max, active, stop_on_hit):
+        return traverse_cuda.traverse_cuda(
+            scene, dyn.kernel, ro, rd, t_max=t_max, active=active,
+            any_hit=any_hit, stop_on_hit=stop_on_hit)
+
+    def on_cpu(ro, rd, t_max, active, stop_on_hit):
+        hit = traverse(scene, dyn.world, ro, rd, t_max=t_max, active=active,
+                       any_hit=any_hit, stop_on_hit=stop_on_hit)
+        return _with_barycentrics(hit, dyn.world, ro, rd)
+
+    return jax.lax.platform_dependent(ro, rd, t_max, active, stop_on_hit,
+                                      cpu=on_cpu, cuda=on_gpu)
+

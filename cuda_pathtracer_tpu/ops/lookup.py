@@ -1,22 +1,21 @@
 """Table-row lookup helpers.
 
-XLA's gather engine on TPU costs a fixed ~0.5 ms dispatch plus ~2.6-8 ns per
-row regardless of table size (PERF.md) — absurd for the renderer's small
-tables (materials: ~a dozen rows; lights: a handful). For those, an unrolled
-select chain fetches rows at VPU streaming speed.
+For the renderer's small tables (materials: ~a dozen rows; lights: a
+handful) an unrolled select chain fetches rows with elementwise work instead
+of a gather.
 
-Why selects and not a one-hot MXU matmul: the packed tables carry int32
-fields BITCAST into f32 lanes (material ids, texture ids). Small ints bitcast
-to f32 are denormals, and the TPU flushes denormals to zero in EVERY
-arithmetic op (including multiply-by-one-hot and add-zero) — a matmul lookup
-silently zeroes those fields. jnp.where is a pure select and bit-preserving.
+Why selects and not a one-hot matmul: the packed tables carry int32 fields
+BITCAST into f32 lanes (material ids, texture ids). Small ints bitcast to f32
+are denormals, which a device that flushes denormals to zero in arithmetic
+(multiply-by-one-hot, add-zero) would silently zero. jnp.where is a pure
+select and bit-preserving (tests/test_gpu.py checks the ids on the card).
 """
 from __future__ import annotations
 
 import jax.numpy as jnp
 
-# crossover: the select chain costs K passes over [B, F]; beyond this the
-# gather's fixed dispatch cost wins
+# crossover: the select chain costs K passes over [B, F]; beyond this a
+# gather is used
 SELECT_MAX_ROWS = 32
 
 

@@ -11,11 +11,9 @@ world space).
 Spheres and planes are brute-forced before the tree walk, exactly like
 traverseTopLevel (src/kernels.h:286-320).
 
-The fat-row wide BVH (ops/traverse_wide.py) implements the same contract for
-the performance path; this module is the semantics reference and the fallback
-when no wide table is available. (A Pallas traversal kernel is blocked on
-Mosaic's gather support — see PERF.md; the Pallas showcase in this codebase
-is the fused blur stencil, ops/blur_pallas.py.)
+This walk is the CPU path and the semantics reference; the CUDA per-ray
+kernel (ops/traverse_cuda.py, the GPU path) implements the same contract and
+is tested against it.
 """
 from __future__ import annotations
 
@@ -57,14 +55,10 @@ class Hit(NamedTuple):
     prim_type: jnp.ndarray  # i32[B] (valid only when hit)
     prim_id: jnp.ndarray    # i32[B] world-triangle index / sphere index / plane index
     intersected: jnp.ndarray  # bool[B]
-    # barycentric (u, v) of the winning triangle, emitted by the traversal
-    # when the caller asks for them (trace(want_uv=True) on the packet path).
-    # None on paths that don't produce them — shade() then recovers the
-    # barycentrics by re-intersecting, like the reference's texturing path
-    # does unconditionally (src/kernels.h:585-619, whose HitInfo carries no
-    # barycentrics). Emitting them from the kernel's leaf pass (where the
-    # Möller u/v are already computed against the VMEM-resident triangles)
-    # lets shade drop the 9 world-vert columns from its per-bounce gather.
+    # barycentric (u, v) of the winning triangle. ops/dispatch.trace always
+    # fills them (the GPU kernel from its leaf test, the XLA path by
+    # re-intersecting, as the reference's texturing path does,
+    # src/kernels.h:585-619); the raw traversal here leaves them None.
     u: jnp.ndarray | None = None  # f32[B]
     v: jnp.ndarray | None = None  # f32[B]
 
@@ -80,8 +74,7 @@ def _leaf_intersect(world: WorldArrays, ro, rd, leaf_start, leaf_count, t_best):
     hit, t, _, _ = isect.ray_triangle(ro[..., None, :], rd[..., None, :], v0, v1, v2)
     valid = hit & (lanes < leaf_count[..., None]) & (t < t_best[..., None])
     t_masked = jnp.where(valid, t, T_MAX)
-    # min-reduce + equality re-select (per-lane take_along_axis costs a full
-    # gather step on TPU)
+    # min-reduce + equality re-select instead of a per-lane take_along_axis
     best_t = jnp.min(t_masked, axis=-1)
     best_idx = jnp.min(jnp.where(t_masked == best_t[..., None], idx,
                                  jnp.int32(2**30)), axis=-1)

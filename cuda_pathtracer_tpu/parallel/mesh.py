@@ -1,8 +1,9 @@
 """Multi-chip rendering: band sharding over a jax.sharding.Mesh.
 
 The reference is single-GPU (SURVEY.md §2: no NCCL/MPI anywhere); frames are
-embarrassingly parallel over pixels, so the TPU scaling axis is pure data
-parallelism. `ShardedPathtracer` is a THIN subclass of the tuned single-chip
+embarrassingly parallel over pixels, so the multi-card scaling axis is pure
+data parallelism over a 1-D mesh (cards joined all to all, as NVLink joins
+the cards of one host). `ShardedPathtracer` is a THIN subclass of the tuned single-chip
 engine: it overrides only `_sample_dispatch`, replacing the sequential
 host-side band loop with a `shard_map` that places whole bands on mesh
 devices. Every band runs the SAME `render_sample` configuration as the
@@ -13,16 +14,18 @@ floating-point guiding partial-sum reduction differs, by design the same
 lullaby as the single-chip band loop's left-to-right sum).
 
 Collectives: one `psum` for the guiding bucket sums (applied before the
-nonlinear EMA so every chip holds the same cache), a `pmax` for the rand
-counter and a `psum` for the ray statistic. Framebuffer shards ride ICI only
-at display time (jax assembles the sharded array on fetch).
+nonlinear EMA so every card holds the same cache), a `pmax` for the rand
+counter and a `psum` for the ray statistic; XLA hands them to NCCL on GPUs.
+Framebuffer shards cross the interconnect only at display time (jax
+assembles the sharded array on fetch). Each band's traversal kernel call
+runs inside the `shard_map`, on its own device's stream.
 """
 from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..models.pathtracer import Pathtracer, render_sample
 from ..models import film
@@ -57,10 +60,8 @@ class ShardedPathtracer(Pathtracer):
         if best is None:
             # pad: smallest height >= requested that the minimum mesh-aligned
             # band count divides evenly (e.g. H=100 on 8 devices -> 104).
-            # When the width allows the tile-packet layout, prefer a padded
-            # height whose band_h is a multiple of 8 so tile_order (and with
-            # it the peeled coherent bounce 0) stays on — a few extra pad
-            # rows are cheaper than losing the packet layout.
+            # When the width allows the tile lane order, prefer a padded
+            # height whose band_h is a multiple of 8 so tile_order stays on.
             b0 = -(-self.bands // n) * n
             padded = -(-height // b0) * b0
             if width % 16 == 0 and (padded // b0) % 8:
@@ -75,7 +76,7 @@ class ShardedPathtracer(Pathtracer):
         self._set_bands(best)
         if width % 16 == 0 and not self.tile_order:
             print(f'mesh: band_h={self.band_h} not tile-aligned; '
-                  f'tile-packet layout disabled for this geometry')
+                  f'tile lane order disabled for this geometry')
         self._sharded_fns = {}
 
     def _mesh_band_count(self, height: int, n: int):
@@ -95,7 +96,7 @@ class ShardedPathtracer(Pathtracer):
     def _sharded(self, key):
         if key in self._sharded_fns:
             return self._sharded_fns[key]
-        g_on, max_bounces, wd, use_spp, nee, cache_on = key
+        g_on, max_bounces, use_spp, nee, cache_on = key
         axis = self.mesh.axis_names[0]
         n_dev = int(self.mesh.devices.size)
         per_dev = self.bands // n_dev
@@ -118,7 +119,7 @@ class ShardedPathtracer(Pathtracer):
                     sample_idx, rand_idx, guide, bn_b[j],
                     nee=nee, cache_on=cache_on, max_bounces=max_bounces,
                     width=W, height=band_h, full_height=H,
-                    row_offset=row0_b[j], wide_depth=wd, defer_guide=True,
+                    row_offset=row0_b[j], defer_guide=True,
                     tile_order=tile_order, spp=use_spp, guide_off=not g_on)
                 lums.append(lum_j)
                 albs.append(alb_j)
@@ -169,14 +170,23 @@ class ShardedPathtracer(Pathtracer):
         return run
 
     def _sample_dispatch(self, camera, guide, g_on: bool, max_bounces: int,
-                         wd: int, use_spp: int):
-        run = self._sharded((g_on, max_bounces, wd, use_spp,
+                         use_spp: int):
+        run = self._sharded((g_on, max_bounces, use_spp,
                              self.nee, self.cache))
+        # give the carried state (accumulators, radiance cache, rand
+        # counter) the shardings the program returns it with, so the first
+        # call after a clear and the ones after it share one compiled
+        # program (a fresh single-device input would compile another)
+        axis = self.mesh.axis_names[0]
+        self.lum, self.alb = jax.device_put(
+            (self.lum, self.alb), NamedSharding(self.mesh, P(axis)))
+        self.radiance, rand_idx = jax.device_put(
+            (self.radiance, jnp.asarray(self.rand_idx, jnp.uint32)),
+            NamedSharding(self.mesh, P()))
         self.lum, self.alb, self.radiance, ridx, rays = run(
             self.arrays, self.dyn, camera, self.radiance,
             self.lum, self.alb,
-            jnp.asarray(self.sample_idx, jnp.uint32),
-            jnp.asarray(self.rand_idx, jnp.uint32), guide)
+            jnp.asarray(self.sample_idx, jnp.uint32), rand_idx, guide)
         return ridx, rays
 
     # ---- pad-aware output (no-ops when height needed no padding) ----

@@ -2,7 +2,7 @@
 
 Mirror of src/sceneBuilder.h:15-323: the four built-in scenes (outside,
 sibenik, minecraft, 2mtris) and the fall-through to scripted scene files.
-Assets the reference repo doesn't ship (sibenik.obj, lucy.obj,
+Assets the repo doesn't ship (cube.obj, sibenik.obj, lucy.obj,
 vokselia_spawn.obj, 2Mtris.obj) degrade to procedural stand-ins of the same
 scale (scene/procedural.py) so every named scene remains runnable and
 benchmarkable; when the real OBJ exists on the asset path it is used.
@@ -49,7 +49,9 @@ def get_outside_scene(asset_dirs=()) -> Scene:
     teapot_mat.glossy = 0.08
     scene.add_material(teapot_mat)
 
-    cube_model = scene.add_model('cube.obj', 1, (0, 0, 0), (0, 0, 0), cube_mat_id)
+    cube_model = _try_model(
+        scene, 'cube.obj', 1, (0, 0, 0), (0, 0, 0), cube_mat_id,
+        fallback=lambda s: procedural.add_cube(s, cube_mat_id))
     for i in range(10):
         cube = GameObject(cube_model)
         cube.kind = 1
@@ -123,7 +125,9 @@ def get_sibenik_scene(asset_dirs=()) -> Scene:
         fallback=lambda s: procedural.add_statue(s, lucy_id))
     scene.add_object(GameObject(lucy_model))
 
-    cube_model = scene.add_model('cube.obj', 1.0, (0, 0, 0), (0, 0, 0), cube_mat_w)
+    cube_model = _try_model(
+        scene, 'cube.obj', 1.0, (0, 0, 0), (0, 0, 0), cube_mat_w,
+        fallback=lambda s: procedural.add_cube(s, cube_mat_w))
     cube_obj = GameObject(cube_model, material_id=cube_mat_w)
     cube_obj.position[:] = [0, 3, 0]
     cube_obj.kind = 5

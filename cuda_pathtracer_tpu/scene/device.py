@@ -1,4 +1,4 @@
-"""Device-side scene representation (the TPU SceneBuffers).
+"""Device-side scene representation (the reference's SceneBuffers).
 
 Equivalent of the reference's SceneBuffers (src/types.h:689-703) plus the
 device constants DTriangleLights / skydome / blue noise that the reference
@@ -23,6 +23,7 @@ import numpy as np
 
 from .textures import TextureStack
 from ..ops.traverse import WorldArrays
+from ..ops.traverse_cuda import KernelTables
 
 
 class SceneArrays(NamedTuple):
@@ -68,9 +69,8 @@ class SceneArrays(NamedTuple):
                                  #   fetch = 2 row gathers instead of 4
     blue_noise: jnp.ndarray      # f32[Hb, Wb]
 
-    # ---- packed single-gather lookup rows (TPU optimization: each gather
-    # step costs ~ms at wavefront width regardless of row size, so every
-    # per-hit lookup is one fat row instead of many thin ones) ----
+    # ---- packed single-gather lookup rows: every per-hit lookup is one
+    # fat row instead of many thin ones ----
     mat_packed: jnp.ndarray      # f32[M, 24]: diffuse|specular|emission|
                                  #   reflect|glossy|transmit|ior|absorption|
                                  #   tex(bitcast)|ntex(bitcast)
@@ -103,37 +103,27 @@ class DynamicArrays(NamedTuple):
     light_v2w: jnp.ndarray       # f32[TL, 3]
     light_normal_w: jnp.ndarray  # f32[TL, 3]
     light_emission_w: jnp.ndarray  # f32[TL, 3]
-    # fat-row 16-ary world BVH (accel/wide.py) — the TPU fast traversal path;
-    # shape [0, 128] disables it (engines fall back to the threaded walk)
-    wide_rows: jnp.ndarray       # f32[NW, 128]
+    # the GPU traversal kernel's tables, derived from `world` whenever it is
+    # built or refitted (ops/traverse_cuda.kernel_tables)
+    kernel: KernelTables
     light_packed: jnp.ndarray    # f32[TL, 16]: v0|v1|v2|normal|emission
     inst_packed: jnp.ndarray     # f32[I, 16]: transform(12)|override(bitcast)
     tri_meta: jnp.ndarray        # f32[WT, 32]: gid|inst as float values,
-                                 #   cols 2:11 world verts v0|v1|v2 (mirrors
-                                 #   world.tris so shade's texturing rides
-                                 #   the same gather), cols 11:27 the baked
+                                 #   cols 2:11 world verts v0|v1|v2 (copies
+                                 #   of world.tris that shade no longer
+                                 #   reads: trace returns barycentrics),
+                                 #   cols 11:27 the baked
                                  #   per-tri shade attrs (model-space
                                  #   normal|tangent|bitangent, uvs, mid) —
                                  #   shade needs ONE gather per bounce
-                                 #   (< 2^24; f32 rows gather ~3.5x faster
-                                 #   than s32 rows on TPU)
-    # split packet tables (ops/traverse_packet.py) derived from wide_rows —
-    # the v1 Pallas VMEM-resident traversal path; [0, 128] disables it
-    packet_inner: jnp.ndarray    # f32[NI, 128]
-    packet_leaf: jnp.ndarray     # f32[NL, 128]
-    # merged contiguous-children table (ops/traverse_packet2.py) — the v2
-    # multi-push kernel's table; [0, 128] disables it (falls back to v1)
-    packet_merged: jnp.ndarray   # f32[NM, 128]
-    # world bounds for morton ray-sort keys, f32[2, 3] (min | extent)
-    bounds: jnp.ndarray
+                                 #   (< 2^24, so exact in f32)
     # per-instance world-tri block map, f32[I, 3] rows sorted by block base:
     # (base=wtri_base, inst, delta=model_tri_start-base). World triangles are
     # per-instance CONTIGUOUS blocks preserving model order
     # (accel/toplevel.py::build_world_bvh emit), so shade recovers
     # gid = pid + delta and inst by an unrolled compare/select chain over
-    # these rows instead of the [WT,2] tri_meta gather (which runs from HBM
-    # at ~13.7 ms/bounce at 829k lanes when MSA's VMEM budget is exhausted,
-    # tools/fusion_attrib.py fusion.1664). Values < 2^24: f32-exact.
+    # these rows instead of a [WT,2] tri_meta gather. Values < 2^24:
+    # f32-exact.
     tri_blocks: jnp.ndarray
 
 

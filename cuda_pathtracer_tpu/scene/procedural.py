@@ -1,6 +1,6 @@
 """Procedural stand-in geometry for reference scenes whose OBJ assets are not
-shipped in the repo (sibenik.obj, lucy.obj, vokselia_spawn.obj, 2Mtris.obj —
-only their .mtl files exist). Each generator matches the missing asset's rough
+shipped in the repo (cube.obj, sibenik.obj, lucy.obj, vokselia_spawn.obj,
+2Mtris.obj). Each generator matches the missing asset's rough
 scale and triangle count so the named scenes stay runnable and the benchmarks
 stress the same regimes (interior multi-bounce, voxel world, 2M-tri BVH).
 """
@@ -132,6 +132,21 @@ def _displaced_sphere(subdiv: int, seed=0, amp=0.35, freq=4.0):
     return v0, v1, v2
 
 
+def add_cube(scene, material: int) -> int:
+    """Unit cube centred on the origin (12 outward-wound triangles),
+    standing in for cube.obj."""
+    quads = []
+    eye = np.eye(3, dtype=np.float32)
+    for a in range(3):
+        b, c = eye[(a + 1) % 3], eye[(a + 2) % 3]
+        for s in (1.0, -1.0):
+            u, v = (b, c) if s > 0 else (c, b)   # u x v points outward
+            p00 = 0.5 * s * eye[a] - 0.5 * (u + v)
+            quads.append((p00, p00 + u, p00 + v, p00 + u + v))
+    p00, p10, p01, p11 = (np.array(q, np.float32) for q in zip(*quads))
+    return scene.add_mesh(*_quads_to_tris(p00, p10, p01, p11), material)
+
+
 def add_statue(scene, material: int, scale=2.0, offset=(3, 0, 4.0)) -> int:
     """~80k-tri displaced sphere standing in for lucy.obj."""
     v0, v1, v2 = _displaced_sphere(6, seed=1)
@@ -142,14 +157,13 @@ def add_statue(scene, material: int, scale=2.0, offset=(3, 0, 4.0)) -> int:
 
 def add_high_poly_statue(scene, material: int, target_tris=2_000_000) -> int:
     """~2M-tri model standing in for 2Mtris.obj (the lucy scan,
-    /root/reference/src/sceneBuilder.h:241-261): a TALL THIN statue-like
+    src/sceneBuilder.h:241-261): a TALL THIN statue-like
     body of revolution with fractal surface detail.
 
     The previous stand-in (stacked displaced icospheres) was a far harder
     traversal workload than the reference's: lucy is a slender statue in
     open space — bounce rays escape after a shallow walk — while fat
-    wrinkled spheres trap bounce wavefronts in concavities (measured 9.7
-    union visits/ray vs sibenik's 2.2, tools/visit_count.py). This shape
+    wrinkled spheres trap bounce wavefronts in concavities. This shape
     matches the reference scene's occupancy character: ~2.7:1 height:width
     (the Stanford lucy's proportions), moderate relief, open surroundings.
 

@@ -20,10 +20,11 @@ from . import objloader
 from .textures import TextureAtlas, load_image
 from .device import SceneArrays, DynamicArrays
 from ..accel.bvh import build_bvh
-from ..accel.flatten import thread_bvh, ThreadedBVH
+from ..accel.flatten import thread_bvh, ThreadedBVH, inner_ancestors
 from ..accel.toplevel import build_world_bvh
 from ..core import transforms as tf
 from ..ops.traverse import WorldArrays
+from ..ops.traverse_cuda import STACK as TRAVERSE_STACK, kernel_tables
 from ..models import sky as _sky_mod
 from ..constants import EPS
 
@@ -90,14 +91,13 @@ class Model:
     triangle_start: int
     nr_triangles: int
     bvh: ThreadedBVH
-    wide: object = None  # accel.wide.WideBVH (model space, lazy)
 
 
 class Scene:
     """The scriptable scene container (src/scene.h:120-402)."""
 
     def __init__(self, asset_dirs=()):
-        self.asset_dirs = list(asset_dirs) or ['.', '/root/reference']
+        self.asset_dirs = list(asset_dirs) or ['.']
         self.models: list[Model] = []
         self.objects: list[GameObject] = []
         self.materials: list[Material] = []
@@ -110,8 +110,6 @@ class Scene:
         self.attached = 0
         self.interactive_depth = 1
         self.interactive_samples = 1
-        self.wide_depth = 0   # stack bound of the wide world BVH (set by
-                              # dynamic_arrays; 0 = wide path unavailable)
         # concatenated triangle data (allVertices / allVertexData)
         self._v0 = np.zeros((0, 3), np.float32)
         self._v1 = np.zeros((0, 3), np.float32)
@@ -130,7 +128,6 @@ class Scene:
         self._version = 0          # bumped whenever dynamic state changes
         self._dyn_cache = None     # (version, DynamicArrays)
         self._refit_templates = None   # accel/refit.py model-space tables
-        self._merged_maps = None   # traverse_packet2 refit maps
         self._refit_key = None
         self._full_dyn = None
 
@@ -342,9 +339,7 @@ class Scene:
         else:
             dup = np.zeros(nt, bool)
         self._tri_dup = np.concatenate([self._tri_dup, dup])
-        from ..accel.wide import build_wide_bvh
-        wide = build_wide_bvh(nodes, v0[perm], v1[perm], v2[perm])
-        self.models.append(Model(start, n_refs, thread_bvh(nodes), wide))
+        self.models.append(Model(start, n_refs, thread_bvh(nodes)))
         return len(self.models) - 1
 
     # ------------------------------------------------------------------
@@ -546,7 +541,7 @@ class Scene:
 
     def dynamic_arrays(self) -> DynamicArrays:
         """Instances + merged world BVH, cached until invalidation
-        (the TPU analogue of the instance/top-BVH refresh at
+        (the analogue of the instance/top-BVH refresh at
         src/pathtracer.h:245-246). After the first full build, invalidations
         that only MOVE things (animation handlers, attached-object motion)
         take the device refit path: host work is the instance matrices plus
@@ -568,6 +563,11 @@ class Scene:
                 self._v0, self._v1, self._v2,
                 np.array([o.model_id for o in self.objects], np.int32),
                 transforms)
+            depth = inner_ancestors(wb.miss, wb.leaf_count)
+            if depth > TRAVERSE_STACK:
+                raise ValueError(
+                    f'world BVH has {depth} nested inner nodes; the GPU '
+                    f'traversal stack holds {TRAVERSE_STACK}')
             world = WorldArrays.from_host(wb)
         else:
             world = WorldArrays(
@@ -579,71 +579,29 @@ class Scene:
         lv0, lv1, lv2, lnrm, lemis, light_packed = \
             self._light_arrays(transforms, overrides)
 
-        # fat-row wide world BVH (TPU fast path) + split packet tables (the
-        # Pallas VMEM-resident traversal, ops/traverse_packet.py)
-        if self.objects and all(m.wide is not None for m in self.models):
-            from ..accel.wide import build_world_wide
-            from ..ops.traverse_packet import split_packet_tables
-            from ..accel import refit as _refit
-            inst_model = np.array([o.model_id for o in self.objects],
-                                  np.int32)
-            ww = build_world_wide(
-                [m.wide for m in self.models], inst_model, transforms,
-                [int(b) for b in wb.wtri_base])
-            wide_rows = jnp.asarray(ww.rows)
-            self.wide_depth = ww.depth
-            ptab = split_packet_tables(ww.rows, ww.depth)
-            packet_inner, packet_leaf = ptab.inner, ptab.leaf
-            from ..ops.traverse_packet2 import (build_merged_table,
-                                                build_refit_maps)
-            if len(ww.rows) < (1 << 20):   # the 20-bit child-base ceiling
-                packet_merged = build_merged_table(ww.rows, ww.depth).rows
-                # static maps so device refits can re-derive the merged
-                # table from the refitted split tables
-                self._merged_maps = build_refit_maps(ww.rows, ww.depth)
-            else:
-                packet_merged = jnp.zeros((0, 128), jnp.float32)
-                self._merged_maps = None
-            bounds = np.stack([wb.vmin[0], np.maximum(wb.vmax[0] - wb.vmin[0],
-                                                      1e-6)])
+        if self.objects:
             # capture the model-space templates so later move-only
             # invalidations refit on DEVICE (accel/refit.py)
+            from ..accel import refit as _refit
             self._refit_templates = _refit.build_templates(
-                [m.wide for m in self.models], inst_model,
-                [int(b) for b in wb.wtri_base], wb,
-                self._v0, self._v1, self._v2, ww.depth)
+                wb, self._v0, self._v1, self._v2)
             self._refit_key = self._structure_key()
         else:
-            wide_rows = jnp.zeros((0, 128), jnp.float32)
-            self.wide_depth = 0
-            packet_inner = jnp.zeros((0, 128), jnp.float32)
-            packet_leaf = jnp.zeros((0, 128), jnp.float32)
-            packet_merged = jnp.zeros((0, 128), jnp.float32)
-            bounds = np.array([[0, 0, 0], [1, 1, 1]], np.float32)
             self._refit_templates = None
             self._refit_key = None
 
         inst_packed = self._inst_packed(transforms, overrides)
         if self.objects:
-            # stored as float VALUES (< 2^24 exact), not int: f32 rows get
-            # the gather-friendly layout on TPU (a same-shape s32 gather
-            # measured ~3.5x slower per row, tools/tpu_op_profile.py).
-            # Cols 2:11 embed the WORLD-SPACE triangle verts (the same
-            # v0|v1|v2 as world.tris): shade's barycentric re-intersect
-            # texturing previously gathered the [WT,9] tris table
-            # separately, and XLA emits that narrow row-major in-loop
-            # gather at ~20 ms/bounce vs ~5 ms for the 16-col form
-            # (tools/tpu_op_profile.py fusion.1267) — one 16-col gather
-            # serves gid|inst AND the verts.
+            # stored as float VALUES (< 2^24 exact), not int, so one f32
+            # row gather serves every column. Cols 2:11 embed the
+            # WORLD-SPACE triangle verts (the same v0|v1|v2 as world.tris).
             assert len(wb.tri_gid) < (1 << 24), 'gid exceeds f32 exactness'
             # Cols 11:27 bake the per-triangle SHADE attributes (the same
             # values tri_packed[gid] holds, pre-gathered per world tri):
             # shade then reads everything except the guiding-cache row off
-            # THIS one gather — one big gather per bounce instead of two
-            # (the second [WT,16] gather measured 8 ms/frame when MSA's
-            # VMEM budget left it in HBM, tools/interactive_profile.py).
-            # All attrs are model-space (normals/tangents transform in
-            # shade by inst_tf), so refit leaves cols 11: untouched.
+            # THIS one gather. All attrs are model-space (normals/tangents
+            # transform in shade by inst_tf), so refit leaves cols 11:
+            # untouched.
             tri_meta = np.zeros((len(wb.tri_gid), 32), np.float32)
             tri_meta[:, 0] = wb.tri_gid
             tri_meta[:, 1] = wb.tri_inst
@@ -681,12 +639,10 @@ class Scene:
                             jnp.asarray(lv2, jnp.float32),
                             jnp.asarray(lnrm, jnp.float32),
                             jnp.asarray(lemis, jnp.float32),
-                            wide_rows,
+                            kernel_tables(world),
                             jnp.asarray(light_packed),
                             jnp.asarray(inst_packed),
                             jnp.asarray(tri_meta),
-                            packet_inner, packet_leaf, packet_merged,
-                            jnp.asarray(bounds, jnp.float32),
                             jnp.asarray(tri_blocks))
         self._dyn_cache = (self._version, dyn)
         self._full_dyn = dyn
@@ -737,7 +693,6 @@ class Scene:
         everything else transformed on device (accel/refit.py)."""
         from ..accel import refit as _refit
         from ..core import transforms as _tf
-        from ..ops import traverse_packet2 as _tp2
         transforms, inverses, overrides = self.instances()
         inst_boxes = np.empty((len(self.objects), 6), np.float32)
         for i, o in enumerate(self.objects):
@@ -745,7 +700,7 @@ class Scene:
             mn, mx = _tf.transform_box(mb.vmin[0], mb.vmax[0], transforms[i])
             inst_boxes[i, 0:3] = mn
             inst_boxes[i, 3:6] = mx
-        inner, leaf, wide, node_box, wtris, bounds = _refit.refit_all(
+        node_box, wtris = _refit.refit_all(
             self._refit_templates, transforms, inst_boxes)
         lv0, lv1, lv2, lnrm, lemis, light_packed = \
             self._light_arrays(transforms, overrides)
@@ -766,14 +721,6 @@ class Scene:
             light_v2w=jnp.asarray(lv2, jnp.float32),
             light_normal_w=jnp.asarray(lnrm, jnp.float32),
             light_emission_w=jnp.asarray(lemis, jnp.float32),
-            wide_rows=wide,
+            kernel=kernel_tables(world),
             light_packed=jnp.asarray(light_packed),
-            inst_packed=jnp.asarray(self._inst_packed(transforms, overrides)),
-            packet_inner=inner, packet_leaf=leaf,
-            # the merged v2 table is re-derived on device from the refitted
-            # split tables via static topology maps (pure gathers + a column
-            # permutation) — animated scenes keep the v2 kernel
-            packet_merged=(_tp2.derive_merged(inner, leaf, self._merged_maps)
-                           if self._merged_maps is not None
-                           else jnp.zeros((0, 128), jnp.float32)),
-            bounds=jnp.asarray(bounds, jnp.float32))
+            inst_packed=jnp.asarray(self._inst_packed(transforms, overrides)))

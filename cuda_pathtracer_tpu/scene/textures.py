@@ -1,8 +1,8 @@
 """Image loading and the flat texture atlas.
 
 The reference binds each image as a bilinear-filtered CUDA texture object
-(src/use_cuda.h:108-263). TPUs have no texture units, so all textures live in
-one flat texel array in HBM and sampling is four gathers + a lerp — the
+(src/use_cuda.h:108-263). Here all textures live in one flat texel array in
+device memory and sampling is row gathers + a lerp — the
 bilinear/wrap semantics are reproduced in :func:`sample_bilinear`.
 
 Decoding uses PIL (jpg/png) plus a small Radiance .hdr reader; like the
@@ -83,15 +83,10 @@ class TextureStack(NamedTuple):
 
     `pairs` holds, for every texel, itself ++ its wrap-adjacent right
     neighbor (within its own texture), so a bilinear fetch needs TWO row
-    gathers (bottom pair + top pair) instead of four corner rows — TPU
-    gather cost is per row, nearly independent of width (PERF.md).
-
-    NOTE(measured): a 12-wide one-gather QUAD table (all four corners per
-    row) was tried for both this atlas and the skydome and is far SLOWER on
-    big tables (32 ms vs 2.2 per interactive bounce shade on the 1500x750
-    sky): XLA lays the [P, 12] table out column-major ({0,1}) for that
-    consumer shape, so each row fetch becomes 12 HBM reads strided P*4
-    bytes apart. The [2, B]-indexed pair form keeps rows contiguous."""
+    gathers (bottom pair + top pair) instead of four corner rows. (A 12-wide
+    QUAD table was laid out column-major by XLA for this consumer shape, so
+    each row fetch became 12 strided reads; the [2, B]-indexed pair form
+    keeps rows contiguous.)"""
     texels: jnp.ndarray   # f32[P, 3]
     pairs: jnp.ndarray    # f32[P, 6]: texel(x,y) ++ texel((x+1)%W, y)
     offset: jnp.ndarray   # i32[K]

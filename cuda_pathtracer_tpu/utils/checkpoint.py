@@ -5,7 +5,7 @@ that format is kept bit-compatible in scene/state.py. This module adds the
 SURVEY §5 "improvement" checkpoints: the full progressive render state
 (luminance/albedo accumulators, the path-guiding radiance cache, sample and
 RNG counters) snapshots to one .npz so a long converge can resume across
-process restarts — the TPU analogue of elastic training checkpoints.
+process restarts.
 """
 from __future__ import annotations
 

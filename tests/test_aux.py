@@ -5,6 +5,7 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
+from cuda_pathtracer_tpu.scene import procedural
 from cuda_pathtracer_tpu.scene.scene import Scene, Material, GameObject, Plane
 from cuda_pathtracer_tpu.models.pathtracer import Pathtracer
 from cuda_pathtracer_tpu.models import sky as sky_mod
@@ -15,10 +16,10 @@ from cuda_pathtracer_tpu.utils.profiling import StageTimer, FpsMeter
 W, H = 48, 32
 
 
-def tiny_scene(reference_assets):
-    scene = Scene(asset_dirs=[reference_assets])
+def tiny_scene():
+    scene = Scene()
     white = scene.add_material(Material.DIFFUSE((0.4,) * 3))
-    cube = scene.add_model('cube.obj', 1.0, (0, 0, 0), (0, 0, 0), white)
+    cube = procedural.add_cube(scene, white)
     scene.add_object(GameObject(cube))
     scene.add_plane(Plane((0, -1, 0), -3, white))
     scene.finalize()
@@ -30,8 +31,8 @@ def cam():
 
 
 @pytest.mark.slow
-def test_checkpoint_roundtrip(tmp_path, reference_assets):
-    scene = tiny_scene(reference_assets)
+def test_checkpoint_roundtrip(tmp_path):
+    scene = tiny_scene()
     pt = Pathtracer(scene, W, H)
     pt.render(cam(), should_clear=True)
     for _ in range(3):
@@ -55,8 +56,8 @@ def test_checkpoint_roundtrip(tmp_path, reference_assets):
                                rtol=1e-6)
 
 
-def test_checkpoint_rejects_mismatched_engine(tmp_path, reference_assets):
-    scene = tiny_scene(reference_assets)
+def test_checkpoint_rejects_mismatched_engine(tmp_path):
+    scene = tiny_scene()
     pt = Pathtracer(scene, W, H)
     pt.render(cam(), should_clear=True)
     path = os.path.join(tmp_path, 'c.npz')
@@ -116,3 +117,29 @@ def test_http_display_roundtrip():
     assert 'w' in d.poll_keys()
     assert d.poll_keys() == set()   # edge: drained
     d.close()
+
+
+def test_profiler_raises_without_gpu_plane(tmp_path):
+    """The device-time reduction reads GPU device planes only; a CPU trace
+    has none, and that is an error rather than an empty breakdown."""
+    import jax.numpy as jnp
+    from cuda_pathtracer_tpu.utils import profiling
+
+    def run():
+        jnp.ones(8).block_until_ready()
+
+    with pytest.raises(RuntimeError, match='no GPU device plane'):
+        profiling.device_op_shares(run, str(tmp_path / 'trace'))
+
+
+@pytest.mark.parametrize('name,category', [
+    ('(anonymous namespace)::traverse_kernel(float4 const*, float4 const*)',
+     'traversal-kernel'),
+    ('input_scatter_fusion_2', 'scatter'),
+    ('fusion_3002', 'fusion'),
+    ('sort_14', 'sort'),
+    ('MemcpyH2D', 'copy/layout'),
+])
+def test_profiler_categories(name, category):
+    from cuda_pathtracer_tpu.utils.profiling import _categorize_op
+    assert _categorize_op(name) == category

@@ -1,65 +1,91 @@
-"""The Pallas dense-window segmented sum matches jax.ops.segment_sum.
+"""The guiding bucket sums (models/guiding.accumulate_buckets, one
+`jax.ops.segment_sum`) against an f64 `np.add.at` reference of
+kernel_update_buckets (src/kernels.h:863-882).
 
-Covers the shapes the guiding update produces (dense low segments + a dump
-segment at the top) and adversarial distributions: sparse spans that force
-multiple window passes per tile, all-one-segment streams, and empty input
-padding. Run in interpret mode so CI needs no TPU.
+Covers the shapes the guiding update produces (dense low segments, invalid
+entries routed to a dump segment) and adversarial distributions: sparse
+spans over a large table, heavy duplication on a tiny table, all-one-segment
+streams and sub-block inputs.
 """
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cuda_pathtracer_tpu.ops.guiding_scatter import segment_sum_pairs
+from cuda_pathtracer_tpu.constants import GUIDE_BUCKETS, MAX_CACHE_DEPTH
+from cuda_pathtracer_tpu.models import guiding
+from cuda_pathtracer_tpu.models.guiding import (SampleCache, SAMPLE_BUCKET,
+                                                SAMPLE_IGNORE,
+                                                SAMPLE_TERMINATE)
 
 
-def _ref(e, w, seg, S):
-    both = jnp.stack([e, w], axis=-1)
-    out = jax.ops.segment_sum(both, seg, num_segments=S)
-    return np.asarray(out[:, 0]), np.asarray(out[:, 1])
+def _reference(n_tris, stype, tri, bucket, cum, energy_rgb):
+    """f64 per-(triangle, bucket) energy sums and counts."""
+    term = stype == SAMPLE_TERMINATE
+    alive_chain = np.cumsum(term, axis=0) - term
+    valid = (stype == SAMPLE_BUCKET) & (alive_chain == 0)
+    ratio = energy_rgb[None].astype(np.float64) / cum.astype(np.float64)
+    lum = 0.299 * ratio[..., 0] + 0.587 * ratio[..., 1] + 0.114 * ratio[..., 2]
+    energy = np.fmin(guiding.ENERGY_CLAMP, lum)
+    seg = (tri * GUIDE_BUCKETS + bucket)[valid]
+    sums = np.zeros(n_tris * GUIDE_BUCKETS)
+    counts = np.zeros(n_tris * GUIDE_BUCKETS)
+    np.add.at(sums, seg, energy[valid])
+    np.add.at(counts, seg, 1.0)
+    return (sums.reshape(n_tris, GUIDE_BUCKETS),
+            counts.reshape(n_tris, GUIDE_BUCKETS))
 
 
-def _check(e, w, seg, S):
-    ke, kw = segment_sum_pairs(jnp.asarray(e), jnp.asarray(w),
-                               jnp.asarray(seg), num_segments=S,
-                               interpret=True)
-    re, rw = _ref(jnp.asarray(e), jnp.asarray(w), jnp.asarray(seg), S)
-    np.testing.assert_allclose(np.asarray(ke), re, rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(kw), rw, rtol=1e-5, atol=1e-5)
+def _check(n_tris, stype, tri, bucket, cum, energy_rgb):
+    cache = SampleCache(jnp.asarray(stype, jnp.int32),
+                        jnp.asarray(tri, jnp.int32),
+                        jnp.asarray(bucket, jnp.int32),
+                        jnp.asarray(cum, jnp.float32))
+    got_e, got_w = guiding.accumulate_buckets(
+        n_tris, cache, jnp.asarray(energy_rgb, jnp.float32))
+    want_e, want_w = _reference(n_tris, stype, tri, bucket, cum, energy_rgb)
+    np.testing.assert_allclose(np.asarray(got_e), want_e, rtol=1e-5,
+                               atol=1e-4)
+    np.testing.assert_array_equal(np.asarray(got_w), want_w)
+
+
+def _random_cache(rng, lanes, n_tris, p_bucket=0.7, tri_hi=None):
+    shape = (MAX_CACHE_DEPTH, lanes)
+    u = rng.random(shape)
+    stype = np.where(u < p_bucket, SAMPLE_BUCKET,
+                     np.where(u < p_bucket + 0.15, SAMPLE_IGNORE,
+                              SAMPLE_TERMINATE))
+    tri = rng.integers(0, tri_hi or n_tris, shape)
+    bucket = rng.integers(0, GUIDE_BUCKETS, shape)
+    cum = rng.uniform(0.05, 1.0, shape + (3,))
+    energy = rng.uniform(0.0, 20.0, (lanes, 3))
+    return stype, tri, bucket, cum, energy
 
 
 @pytest.mark.parametrize('L,S,seed', [
-    (3000, 4096, 0),       # dense: most tiles one pass
-    (2048, 300_000, 1),    # sparse: spans >> window, multi-pass tiles
-    (1024, 130, 2),        # heavy duplication, tiny table
-    (700, 2048, 3),        # sub-tile input (padding exercised)
+    (3000, 512, 0),        # dense: most buckets hit several times
+    (2048, 37_500, 1),     # sparse: updates spread over a large table
+    (1024, 16, 2),         # heavy duplication, tiny table
+    (700, 256, 3),         # sub-block input
 ])
 def test_matches_segment_sum(L, S, seed):
     rng = np.random.default_rng(seed)
-    seg = rng.integers(0, S, L).astype(np.int32)
-    e = rng.random(L).astype(np.float32) * 10
-    w = (rng.random(L) < 0.7).astype(np.float32)
-    _check(e, w, seg, S)
+    _check(S, *_random_cache(rng, L, S))
 
 
 def test_single_segment_stream():
-    # every update in one segment: one run the length of the stream
-    L, S = 2048, 9000
-    e = np.ones(L, np.float32)
-    w = np.full(L, 2.0, np.float32)
-    seg = np.full(L, 8999, np.int32)
-    _check(e, w, seg, S)
+    # every valid update in one (triangle, bucket): one run the length of
+    # the stream
+    L, n_tris = 2048, 1125
+    stype = np.full((MAX_CACHE_DEPTH, L), SAMPLE_BUCKET)
+    tri = np.full((MAX_CACHE_DEPTH, L), n_tris - 1)
+    bucket = np.full((MAX_CACHE_DEPTH, L), GUIDE_BUCKETS - 1)
+    cum = np.ones((MAX_CACHE_DEPTH, L, 3))
+    energy = np.ones((L, 3))
+    _check(n_tris, stype, tri, bucket, cum, energy)
 
 
 def test_guiding_shape_distribution():
     # the real update shape: valid entries hit a few hundred triangles'
-    # buckets, invalid ones all map to the dump segment S-1
+    # buckets, the rest are terminated or ignored chains
     rng = np.random.default_rng(7)
-    L, n_tris = 6144, 2000
-    S = n_tris * 8 + 1
-    valid = rng.random(L) < 0.6
-    tri = rng.integers(0, 300, L)
-    seg = np.where(valid, tri * 8 + rng.integers(0, 8, L), S - 1)
-    e = np.where(valid, rng.random(L) * 100, 0.0).astype(np.float32)
-    w = valid.astype(np.float32)
-    _check(e, w, seg.astype(np.int32), S)
+    _check(2000, *_random_cache(rng, 6144, 2000, p_bucket=0.6, tri_hi=300))

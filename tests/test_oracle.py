@@ -85,9 +85,8 @@ def oracle_scene(scene):
     emis = np.array([m.emission for m in scene.materials], np.float64)[mid]
     planes = [(np.asarray(p.normal, np.float64), float(p.d),
                scene.materials[p.material]) for p in scene.planes]
-    wd = -(-scene.wide_depth // 4) * 4
     return dict(v0=v0, v1=v1, v2=v2, alb=alb, emis=emis, planes=planes,
-                arrays=arrays, dyn=dyn, wd=wd)
+                arrays=arrays, dyn=dyn)
 
 
 def oracle_camera_rays(camera, rng, n):
@@ -258,14 +257,13 @@ def engine_render(scene, camera, samples, max_bounces, nee, seed0=0):
                              sky_pairs=jnp.asarray(build_sky_pairs(uni)))
     radiance = init_radiance_state(int(arrays.tri_mat.shape[0]))
     lum, alb = film.clear_accumulators(W * H)
-    wd = -(-scene.wide_depth // 4) * 4
     rand_idx = jnp.uint32(seed0)
     for s in range(samples):
         lum, alb, _, rand_idx, _ = render_sample(
             arrays, dyn, camera, radiance, lum, alb,
             jnp.uint32(seed0 + s), rand_idx, jnp.asarray(False),
             nee=nee, cache_on=False, max_bounces=max_bounces,
-            width=W, height=H, wide_depth=wd, guide_off=True)
+            width=W, height=H, guide_off=True)
     lum = np.asarray(lum, np.float64)
     return lum[:, :3] / lum[:, 3:4]
 
@@ -280,7 +278,7 @@ def osc(reference_assets):
 
 
 def test_oracle_closest_hit(reference_assets, osc):
-    """Engine trace() (dispatch path: wide/packet tables) vs f64 brute force
+    """Engine trace() (the dispatch path) vs f64 brute force
     over all triangles+planes: same hit set, same t, same prim kind."""
     rng = np.random.default_rng(7)
     camera = cam()
@@ -288,7 +286,7 @@ def test_oracle_closest_hit(reference_assets, osc):
     bt, bk, _bi = oracle_closest(o, d, osc)
 
     hit = trace(osc['arrays'], osc['dyn'], jnp.asarray(o, jnp.float32),
-                jnp.asarray(d, jnp.float32), wide_depth=osc['wd'])
+                jnp.asarray(d, jnp.float32))
     et = np.asarray(hit.t, np.float64)
     ei = np.asarray(hit.intersected)
 
@@ -327,8 +325,7 @@ def test_oracle_nee_visibility(reference_assets, osc):
 
     hit = trace(osc['arrays'], osc['dyn'], jnp.asarray(so, jnp.float32),
                 jnp.asarray(sd, jnp.float32),
-                t_max=jnp.asarray(tmax, jnp.float32), any_hit=True,
-                wide_depth=osc['wd'])
+                t_max=jnp.asarray(tmax, jnp.float32), any_hit=True)
     occluded_engine = np.asarray(hit.intersected)
     assert 0.0 < occluded_oracle.mean() < 1.0   # both classes present
     agree = occluded_engine == occluded_oracle

@@ -91,7 +91,6 @@ def oracle_scene_full(scene):
 
     planes = [(np.asarray(p.normal, np.float64), float(p.d),
                scene.materials[p.material]) for p in scene.planes]
-    wd = -(-scene.wide_depth // 4) * 4
     return dict(
         v0=tm[:, 2:5], v1=tm[:, 5:8], v2=tm[:, 8:11],
         alb=col(lambda m: m.diffuse_color),
@@ -101,7 +100,7 @@ def oracle_scene_full(scene):
         transm=col(lambda m: (m.transmit,))[:, 0],
         ior=col(lambda m: (m.refractive_index,))[:, 0],
         absorb=col(lambda m: m.absorption),
-        planes=planes, arrays=arrays, dyn=dyn, wd=wd)
+        planes=planes, arrays=arrays, dyn=dyn)
 
 
 def _own_basis(n):

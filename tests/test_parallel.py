@@ -14,18 +14,19 @@ import pytest
 from cuda_pathtracer_tpu.parallel.mesh import make_mesh, ShardedPathtracer
 from cuda_pathtracer_tpu.models.pathtracer import Pathtracer
 from cuda_pathtracer_tpu.core import camera as cam_mod
+from cuda_pathtracer_tpu.scene import procedural
 from cuda_pathtracer_tpu.scene.scene import Scene, Material, GameObject, Plane
 
 W, H = 64, 64
 
 
-def scene_for(reference_assets):
-    scene = Scene(asset_dirs=[reference_assets])
+def scene_for():
+    scene = Scene()
     white = scene.add_material(Material.DIFFUSE((0.4,) * 3))
     glow = Material.DIFFUSE((1, 1, 1))
     glow.emission = (8.0, 8.0, 8.0)
     glow_id = scene.add_material(glow)
-    cube = scene.add_model('cube.obj', 1.0, (0, 0, 0), (0, 0, 0), white)
+    cube = procedural.add_cube(scene, white)
     scene.add_object(GameObject(cube))
     light = GameObject(cube, material_id=glow_id)
     light.position[:] = [0, 6, 0]
@@ -42,8 +43,8 @@ def cam():
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason='needs 8 virtual devices')
 @pytest.mark.slow
-def test_sharded_matches_single_chip_bitwise(reference_assets):
-    scene = scene_for(reference_assets)
+def test_sharded_matches_single_chip_bitwise():
+    scene = scene_for()
 
     mesh = make_mesh(jax.devices()[:8])
     sharded = ShardedPathtracer(scene, W, H, mesh=mesh)
@@ -88,8 +89,8 @@ def test_sharded_matches_single_chip_bitwise(reference_assets):
 
 
 @pytest.mark.skipif(len(jax.devices()) < 2, reason='needs multiple devices')
-def test_sharded_runs_on_two_devices(reference_assets):
-    scene = scene_for(reference_assets)
+def test_sharded_runs_on_two_devices():
+    scene = scene_for()
     mesh = make_mesh(jax.devices()[:2])
     pt = ShardedPathtracer(scene, W, H, mesh=mesh)
     pt.render(cam(), should_clear=True)
@@ -99,11 +100,11 @@ def test_sharded_runs_on_two_devices(reference_assets):
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason='needs 8 virtual devices')
 @pytest.mark.slow
-def test_sharded_awkward_height_pads(reference_assets):
+def test_sharded_awkward_height_pads():
     """A height with no mesh-aligned band count (H=100 on 8 devices) must
     render via internal padding, not assert — and the visible image must
     match a single-chip render at the REQUESTED resolution bit-for-bit."""
-    scene = scene_for(reference_assets)
+    scene = scene_for()
     H_odd = 100
     mesh = make_mesh(jax.devices()[:8])
     sharded = ShardedPathtracer(scene, W, H_odd, mesh=mesh)
@@ -127,10 +128,10 @@ def test_sharded_awkward_height_pads(reference_assets):
 
 
 @pytest.mark.skipif(len(jax.devices()) < 8, reason='needs 8 virtual devices')
-def test_sharded_spp_batching(reference_assets):
+def test_sharded_spp_batching():
     """The sharded engine accepts the spp-batched configuration too (the
     whole tuned surface is shardable, not a reduced subset)."""
-    scene = scene_for(reference_assets)
+    scene = scene_for()
     mesh = make_mesh(jax.devices()[:8])
     pt = ShardedPathtracer(scene, W, H, mesh=mesh, spp=2)
     pt.render(cam(), should_clear=True)
@@ -140,3 +141,17 @@ def test_sharded_spp_batching(reference_assets):
     w = np.asarray(pt.lum[:, 3])
     assert (w == w[0]).all() and w[0] == pt.sample_idx
     assert np.isfinite(np.asarray(pt.lum)).all()
+
+
+@pytest.mark.skipif(len(jax.devices()) < 4, reason='needs 4 virtual devices')
+def test_sharded_converge_compiles_once():
+    """The converge program compiles on the first sample only: the state a
+    sample returns (mesh-sharded accumulators, replicated cache and rand
+    counter) goes back in with the shardings it was compiled for."""
+    scene = scene_for()
+    pt = ShardedPathtracer(scene, 32, 16, mesh=make_mesh(jax.devices()[:4]))
+    for _ in range(3):
+        pt.render(cam(), should_clear=False)
+    pt.finish()
+    (run,) = pt._sharded_fns.values()
+    assert run._cache_size() == 1

@@ -1,11 +1,12 @@
 """Device-side refit (accel/refit.py) vs full host rebuild — the cheap
-per-frame dynamics of VERDICT round-1 item 4 (reference behavior:
-src/pathtracer.h:245-246, scene.h:400)."""
+per-frame dynamics of the reference (src/pathtracer.h:245-246,
+scene.h:400)."""
 import time
 
 import numpy as np
 import pytest
 
+from cuda_pathtracer_tpu.ops.traverse_cuda import kernel_tables
 from cuda_pathtracer_tpu.scene.builder import get_scene
 
 
@@ -13,35 +14,23 @@ def _compare_dyns(a, b, atol=2e-4):
     """Geometry must match the full rebuild. NOTE: the full rebuild re-runs
     the agglomerative pairing, which renumbers the world-triangle layout; the
     refit keeps its frozen numbering (both are internally consistent). So
-    world tris compare in canonical (inst, gid) order, and the packet tables
-    (spliced in stable instance order) compare on their geometry lanes."""
-    def canon(d):
+    world tris compare in canonical (inst, gid) order."""
+    def canon(d, tris):
         key = np.lexsort((np.asarray(d.tri_meta[:, 0]),
                           np.asarray(d.tri_meta[:, 1])))
-        return np.asarray(d.world.tris)[key]
+        return np.asarray(tris)[key]
 
-    np.testing.assert_allclose(canon(a), canon(b), atol=atol)
-    np.testing.assert_allclose(np.asarray(a.packet_leaf)[:, :108],
-                               np.asarray(b.packet_leaf)[:, :108], atol=atol)
-    pi_a = np.asarray(a.packet_inner)[:, :96]
-    pi_b = np.asarray(b.packet_inner)[:, :96]
-    np.testing.assert_array_equal(np.isnan(pi_a), np.isnan(pi_b))
-    m = ~np.isnan(pi_a)
-    np.testing.assert_allclose(pi_a[m], pi_b[m], atol=atol)
+    np.testing.assert_allclose(canon(a, a.world.tris),
+                               canon(b, b.world.tris), atol=atol)
+    # the GPU kernel's triangle table (v0 | e1 | e2) follows the refit
+    np.testing.assert_allclose(canon(a, a.kernel.tris),
+                               canon(b, b.kernel.tris), atol=atol)
     np.testing.assert_allclose(np.asarray(a.light_packed),
                                np.asarray(b.light_packed), atol=atol)
-    # the v2 merged table must ride through the refit too (device-derived
-    # from the refitted split tables via static maps)
-    pm_a = np.asarray(a.packet_merged)
-    pm_b = np.asarray(b.packet_merged)
-    assert pm_a.shape == pm_b.shape and pm_a.shape[0] > 1
-    np.testing.assert_array_equal(np.isnan(pm_a), np.isnan(pm_b))
-    mm = ~np.isnan(pm_a)
-    np.testing.assert_allclose(pm_a[mm], pm_b[mm], atol=atol)
 
 
-def test_refit_matches_full_rebuild(reference_assets):
-    scene = get_scene('outside', asset_dirs=[reference_assets])
+def test_refit_matches_full_rebuild():
+    scene = get_scene('outside')
     scene.dynamic_arrays()          # full build + template capture
     scene.update(None, 3.0)         # animation handler moves the cubes
     assert scene.invalid
@@ -54,15 +43,18 @@ def test_refit_matches_full_rebuild(reference_assets):
     scene._dyn_cache = None
     dyn_full = scene.dynamic_arrays()
     _compare_dyns(dyn_refit, dyn_full)
+    # the refit's kernel tables are those of its refitted world
+    for got, want in zip(dyn_refit.kernel, kernel_tables(dyn_refit.world)):
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
 
 
-def test_refit_render_parity(reference_assets):
+def test_refit_render_parity():
     """An animated frame rendered off the refit path must match the full
-    rebuild's image (the wide-table geometry agrees to float tolerance)."""
+    rebuild's image (the refitted geometry agrees to float tolerance)."""
     import jax.numpy as jnp
     from cuda_pathtracer_tpu.models.pathtracer import Pathtracer
     from cuda_pathtracer_tpu.core.camera import Camera
-    scene = get_scene('outside', asset_dirs=[reference_assets])
+    scene = get_scene('outside')
     cam = Camera.create([0, 4, -10], [0, -0.2, 1], 1.5, 8, 0.0)
 
     scene.dynamic_arrays()
@@ -100,7 +92,7 @@ def test_refit_is_cheap(reference_assets):
             scene.invalidate()
             t0 = time.perf_counter()
             d = scene.dynamic_arrays()
-            d.packet_leaf.block_until_ready()
+            d.kernel.nodes.block_until_ready()
             d.world.tris.block_until_ready()
             refit_t = min(refit_t, time.perf_counter() - t0)
 

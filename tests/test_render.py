@@ -164,7 +164,8 @@ def test_display_transform_gamma_vignette():
 def test_table_lookup_exact():
     """Small-table lookup must be bit-exact vs gather (ops/lookup.py) —
     INCLUDING int32 ids bitcast into f32 lanes, which are denormals that any
-    arithmetic lookup (one-hot matmul) would flush to zero on TPU."""
+    arithmetic lookup (one-hot matmul) could flush to zero on a device that
+    flushes denormals."""
     import numpy as np
     import jax.numpy as jnp
     from cuda_pathtracer_tpu.ops.lookup import table_lookup

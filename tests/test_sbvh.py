@@ -5,11 +5,8 @@ never change a closest hit, every source triangle must stay reachable, and
 the light list must not double-count an emissive triangle that spatial
 splits reference from several leaves.
 
-Measured round 5 (tools/sbvh_ab.py, sibenik wavefronts, DP collapse): the
-packet-UNION economy does not profit — bounce union visits -1.8%, primary
-+8.6% at a 42% ref increase — so SBVH stays opt-in and the binned builder
-remains the default. Reference builder being improved upon:
-/root/reference/src/bvhBuilder.h:35-274.
+SBVH stays opt-in and the binned builder remains the default. Reference
+builder being improved upon: src/bvhBuilder.h:35-274.
 """
 import os
 
@@ -18,10 +15,6 @@ import pytest
 
 from cuda_pathtracer_tpu.accel import native
 from cuda_pathtracer_tpu.accel.bvh import build_bvh_numpy
-
-pytestmark = pytest.mark.skipif(not native.available(),
-                                reason='native builder unavailable')
-
 
 def _random_mesh(n, seed=0):
     rng = np.random.default_rng(seed)

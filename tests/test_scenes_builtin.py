@@ -28,6 +28,26 @@ def test_sibenik_scene(reference_assets):
     assert len(tris) == 12
 
 
+def test_sibenik_scene_without_assets():
+    """The headline scene builds from procedural stand-ins alone (cathedral,
+    statue, cube light) and finalises into device arrays."""
+    s = get_scene('sibenik')
+    assert len(s.objects) == 3 and len(s.spheres) == 2
+    _, _, overrides = s.instances()
+    tris, _ = s.extract_triangle_lights(overrides)
+    assert len(tris) == 12               # the procedural cube light
+    dyn = s.dynamic_arrays()
+    assert dyn.world.tris.shape[0] == len(s._v0) > 150_000
+
+
+def test_outside_scene_without_assets():
+    s = get_scene('outside')
+    assert len(s.objects) == 10
+    assert len(s._v0) == 12              # one procedural cube model
+    s.update(None, 5.0)
+    assert s.invalid
+
+
 def test_minecraft_scene(reference_assets):
     s = get_scene('minecraft', asset_dirs=[reference_assets])
     assert len(s.objects) == 1

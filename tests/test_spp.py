@@ -4,8 +4,8 @@ One dispatch rendering k samples in a k*B-lane wavefront must agree with k
 sequential 1-sample dispatches: same sample accounting, decorrelated RNG
 streams per sample (disjoint rand_idx windows), and statistically the same
 image. Reference semantics: the sample loop of Pathtracer::Render
-(src/pathtracer.h:255-301) — batching is a TPU-side scheduling choice, not a
-semantic one.
+(src/pathtracer.h:255-301) — batching is a device-side scheduling choice,
+not a semantic one.
 """
 import numpy as np
 import pytest
@@ -82,9 +82,8 @@ def test_batched_guiding_ema_per_sample(reference_assets):
     arrays, dyn = scene.to_device(), scene.dynamic_arrays()
     r0 = init_radiance_state(int(arrays.tri_mat.shape[0]))
     lum, alb = film.clear_accumulators(W * H)
-    wd = -(-scene.wide_depth // 4) * 4
     kw = dict(nee=True, cache_on=True, max_bounces=4,
-              width=W, height=H, wide_depth=wd, spp=2)
+              width=W, height=H, spp=2)
     _, _, (gsum, gcnt), _, _ = render_sample(
         arrays, dyn, cam(), r0, lum, alb, jnp.uint32(2), jnp.uint32(9),
         jnp.asarray(True), defer_guide=True, **kw)

@@ -116,7 +116,6 @@ def test_tail_multi_round_preserves_guiding(reference_assets, monkeypatch):
     radiance = init_radiance_state(int(arrays.tri_mat.shape[0]))
     lum, alb = film.clear_accumulators(W * H)
     cam = cam_mod.Camera.create([0, 2, -6], [0, -0.1, 1], 1.5, 6, 0.0)
-    wd = -(-scene.wide_depth // 4) * 4
 
     def guided_count():
         ptm.render_sample.clear_cache()
@@ -124,7 +123,7 @@ def test_tail_multi_round_preserves_guiding(reference_assets, monkeypatch):
             arrays, dyn, cam, radiance, lum, alb,
             jnp.uint32(1), jnp.uint32(5), jnp.asarray(True),
             nee=True, cache_on=True, max_bounces=8,
-            width=W, height=H, wide_depth=wd, defer_guide=True)
+            width=W, height=H, defer_guide=True)
         return float(np.asarray(counts).sum())
 
     full = guided_count()                        # 3072 lanes < TAIL_MIN

@@ -4,9 +4,11 @@ The world-tri layout is per-instance contiguous blocks preserving model
 order (accel/toplevel.py::build_world_bvh), which shade exploits to replace
 the [WT,2] gid|inst gather with an unrolled compare/select decode
 (models/shading.py). This locks the equivalence on a multi-model,
-multi-instance scene (shared models => shared gid ranges)."""
+multi-instance scene (shared models => shared gid ranges) built from
+procedural meshes."""
 import numpy as np
 
+from cuda_pathtracer_tpu.scene import procedural
 from cuda_pathtracer_tpu.scene.scene import Scene, Material, GameObject
 
 
@@ -22,10 +24,10 @@ def _decode(blocks, pid):
 
 
 def test_decode_matches_tri_meta():
-    scene = Scene(asset_dirs=['/root/reference'])
+    scene = Scene()
     m = scene.add_material(Material.DIFFUSE((0.5,) * 3))
-    teapot = scene.add_model('teapot.obj', 1.0, (0, 0, 0), (0, 0, 0), m)
-    cube = scene.add_model('cube.obj', 2.0, (0, 0, 0), (0, 0, 0), m)
+    teapot = scene.add_mesh(*procedural._displaced_sphere(2, seed=2), m)
+    cube = procedural.add_cube(scene, m)
     # interleave instances of shared models so block order != inst order
     scene.add_object(GameObject(cube, position=(5, 0, 0)))
     scene.add_object(GameObject(teapot, position=(0, 0, 0)))
